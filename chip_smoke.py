@@ -1,0 +1,341 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``partisan_tpu_torch``) on one NVIDIA card.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``partisan_tpu_torch/csrc/`` (nvcc, into
+``build/``), then:
+
+0. prints the card's name and power limit and the build time;
+1. K3 (rumor_fused.cu) against its plain version at N=2^20, fanout 2,
+   stop_k 1, churn 0.01, 64 rounds from rumor_init(n, 5), and on a random
+   world with stop_k 3: bit-equality of infected and hot;
+2. K4 (rumor_hbm.cu) against its plain version at N=2^24, block_rows 1024:
+   churn 0 for 8 rounds with both all_alive settings (bit-equality), and
+   churn 0.01 for 8 rounds (bit-equality, and infected fractions within
+   0.02);
+3. the headline path: rumor_run(rumor_init(2^20, 0), 20000, 2^20, 2, 1,
+   0.01, "fused"), one warm-up and three timed runs on fresh worlds; the
+   infected fraction must lie in (0.55, 0.75) and K3 must have launched;
+4. the big-N path: rumor_run_hbm(..., block_rows=1024, all_alive=True) at
+   N=2^24, 3000 rounds, churn 0.01, three timed runs on fresh worlds; same
+   window, and K4 must have launched; then the entry's host draws and K4
+   alone on the last call's inputs, and both kernels without churn;
+5. one JSON line of every ported kernel (launches, error against the
+   plain version, times, bound), then the card's name and power limit,
+   then the result line {"ok": true, "device": {...}}.
+
+Any failed check raises, and the script exits non-zero with no result
+line.  Without a CUDA device, or outside a checkout, it exits 2.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+# 32-bit integer add, logic, shift and compare instructions an SM issues
+# per clock at compute capability 9.0 (CUDA C++ Programming Guide, table of
+# arithmetic instruction throughput); the kernels' operations are these.
+INT32_OPS_PER_SM_CLOCK = 64
+
+N_FUSED = 1 << 20
+N_HBM = 1 << 24
+ENDEMIC = (0.55, 0.75)   # tests/test_rumor_kernel.py:52-55
+
+
+def smi(query: str, fmt: str = "csv,noheader") -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """The card's 32-bit integer issue rate: SMs x 64 x its top SM clock."""
+    import torch
+    mhz = float(smi("clocks.max.sm", "csv,noheader,nounits"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_OPS_PER_SM_CLOCK * mhz * 1e6
+
+
+def round_ops_per_word(fanout: int, stop_k: int, churn: float,
+                       all_alive: bool) -> int:
+    """32-bit integer operations one word of one round needs: the rolls,
+    masks and updates of the round, and the mix32 chain of each packed
+    Bernoulli mask (bitset.expansion gives its depth and set bits)."""
+    from partisan_tpu_torch.ops.bitset import expansion
+
+    def biased(p):
+        depth, ones = expansion(p)
+        return 1 + sum(2 + 8 + (4 if ones >> d & 1 else 2)
+                       for d in range(depth))
+
+    alive_and = 0 if all_alive else 1
+    ops = fanout * (3 + 1 + alive_and)   # roll, OR into hit, AND alive
+    ops += alive_and + 2                 # send; new_inf = inf | hit & alive
+    ops += 4 + 3 + 2                     # dup roll & send; new_hot; clear
+    if stop_k > 1:
+        ops += 1 + biased(1.0 / stop_k)
+    if churn > 0.0:
+        ops += 4 + biased(churn)
+    return ops + 2                       # the hot & alive test
+
+
+def bound_ms(bytes_moved: int, ops: float, ops_per_s: float
+             ) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(a, b) -> int:
+    """Largest difference of two int32 word tensors read as uint32."""
+    mask = 0xFFFFFFFF
+    return int(((a.long() & mask) - (b.long() & mask)).abs().max())
+
+
+def event_ms(fn) -> tuple[float, object]:
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def random_packed(n: int, seed: int, dead: bool, device):
+    """A packed world with ~20% infected, ~half of them hot and, when
+    ``dead``, ~1/8 of the nodes dead; made from a numpy seed."""
+    import numpy as np
+    import torch
+    from partisan_tpu_torch.models.demers import RumorWorldPacked
+    rng = np.random.default_rng(seed)
+    w = n // 32
+
+    def words(k, op):
+        acc = rng.integers(0, 2 ** 32, w, dtype=np.uint64).astype(np.uint32)
+        for _ in range(k - 1):
+            acc = op(acc, rng.integers(0, 2 ** 32, w, dtype=np.uint64)
+                     .astype(np.uint32))
+        return acc
+
+    inf = words(2, np.bitwise_and) & ~words(3, np.bitwise_and)
+    hot = inf & words(1, np.bitwise_and)
+    alive = (words(3, np.bitwise_or) if dead
+             else np.full(w, 0xFFFFFFFF, np.uint32))
+    t = [torch.from_numpy(x.view(np.int32)).to(device)
+         for x in (inf, hot, alive)]
+    return RumorWorldPacked(*t, torch.zeros((), dtype=torch.int32,
+                                            device=device))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "partisan_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from partisan_tpu_torch.models import demers
+    from partisan_tpu_torch.ops import _native, bitset, rumor_kernel
+    from partisan_tpu_torch.ops import rumor_kernel_hbm as hbm
+
+    dev = torch.device("cuda")
+    card = smi("name,power.limit")
+    int_rate = int32_ops_per_s()
+    print(f"[0] card: {card}")
+    print(f"    torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}; int32 issue rate "
+          f"{int_rate / 1e12:.2f} TOP/s")
+    t0 = time.perf_counter()
+    _native.lib()
+    print(f"[0] kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s ({_native.BUILD['path']})")
+    for line in _native.BUILD["log"].splitlines():
+        if "registers" in line or "spill" in line or line.startswith("---"):
+            print(f"    {line.strip()}")
+
+    def frac(words, n):
+        return bitset.count(words) / n
+
+    # ---- 1. K3 against its plain version -------------------------------
+    n = N_FUSED
+    k3_err = 0
+    cases = [("rumor_init(n, 5), stop_k 1", demers.rumor_pack(
+        demers.rumor_init(n, 5, device=dev)), 1),
+        ("random world, stop_k 3", random_packed(n, 1, True, dev), 3)]
+    for label, w, stop_k in cases:
+        table = rumor_kernel.rumor_table(int(w.rnd), 64, n, 2)
+        want = rumor_kernel.rumor_run_fused_plain(w, table, n, stop_k, 0.01)
+        got = rumor_kernel.rumor_run_fused_cuda(w, table, n, stop_k, 0.01)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(want.infected, got.infected),
+                  max_abs_err(want.hot, got.hot))
+        k3_err = max(k3_err, err)
+        print(f"[1] K3 vs plain, N=2^20, 64 rounds, churn 0.01, {label}: "
+              f"max_abs_err {err}, infected {frac(got.infected, n):.4f}")
+        assert err == 0, "K3 disagrees with its plain version"
+
+    # ---- 2. K4 against its plain version -------------------------------
+    n = N_HBM
+    k4_err = 0
+    for all_alive, churn in ((False, 0.0), (True, 0.0), (True, 0.01)):
+        w = random_packed(n, 2, not all_alive, dev)
+        table = hbm.hbm_table(int(w.rnd), 8, n, 2)
+        want = hbm.rumor_run_hbm_plain(w, table, n, 1, churn, all_alive)
+        got = hbm.rumor_run_hbm_cuda(w, table, n, 1, churn, all_alive)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(want.infected, got.infected),
+                  max_abs_err(want.hot, got.hot))
+        k4_err = max(k4_err, err)
+        fw, fg = frac(want.infected, n), frac(got.infected, n)
+        print(f"[2] K4 vs plain, N=2^24, 8 rounds, all_alive {all_alive}, "
+              f"churn {churn}: max_abs_err {err}, infected {fg:.4f} "
+              f"(plain {fw:.4f})")
+        assert abs(fw - fg) <= 0.02, "K4 infected fraction off its plain"
+        assert err == 0, "K4 disagrees with its plain version"
+    # the plain version's time for one big-N round (all_alive, churn 0.01)
+    plain_hbm_ms, _ = event_ms(lambda: hbm.rumor_run_hbm_plain(
+        w, table, n, 1, 0.01, True))
+    plain_hbm_ms /= table.shape[0]
+
+    # ---- 3. the headline path: K3 inside rumor_run ---------------------
+    n, rounds = N_FUSED, 20000
+
+    def headline(pz):
+        out = demers.rumor_run(demers.rumor_init(n, pz, device=dev), rounds,
+                               n, 2, 1, 0.01, "fused")
+        torch.cuda.synchronize()
+        return out
+
+    rumor_kernel.LAUNCHES = 0
+    headline(0)                                       # warm-up
+    times, fracs = [], []
+    for t in range(3):
+        t0 = time.perf_counter()
+        out = headline(104729 * (t + 3) % n)
+        times.append(time.perf_counter() - t0)
+        fracs.append(float(out.infected.float().mean()))
+    k3_launches = rumor_kernel.LAUNCHES
+    rps = rounds / statistics.median(times)
+    print(f"[3] headline N=2^20, {rounds} rounds, churn 0.01: median "
+          f"{rps:.1f} rounds/s (host clock, {card}); infected {fracs}; "
+          f"K3 launches {k3_launches}")
+    assert all(ENDEMIC[0] < f < ENDEMIC[1] for f in fracs), fracs
+    assert k3_launches > 0, "the headline path did not launch K3"
+    # K3 alone and its plain version on one headline call's inputs
+    w = demers.rumor_pack(demers.rumor_init(n, 0, device=dev))
+    t0 = time.perf_counter()
+    table = rumor_kernel.rumor_table(0, rounds, n, 2)
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    k3_ms, _ = event_ms(lambda: rumor_kernel.rumor_run_fused_cuda(
+        w, table, n, 1, 0.01))
+    k3_plain_ms, _ = event_ms(lambda: rumor_kernel.rumor_run_fused_plain(
+        w, table, n, 1, 0.01))
+    W = n // 32
+    k3_bound = bound_ms(5 * W * 4 + table.numel() * 4,
+                        rounds * W * round_ops_per_word(2, 1, 0.01, False),
+                        int_rate)
+    call_ms = statistics.median(times) * 1e3
+    print(f"[3] K3 one launch of {rounds} rounds: {k3_ms:.3f} ms "
+          f"({k3_ms / rounds * 1e3:.3f} us/round); plain {k3_plain_ms:.1f} "
+          f"ms; bound {k3_bound[0]:.4f} ms by {k3_bound[1]}; host draws "
+          f"of the table {draw_ms:.1f} ms; card idle "
+          f"{1.0 - k3_ms / call_ms:.3f} of a {call_ms:.1f} ms call")
+
+    # ---- 4. the big-N path: K4 through its entry point -----------------
+    n, rounds = N_HBM, 3000
+    worlds = [demers.rumor_pack(demers.rumor_init(
+        n, 104729 * (t + 3) % n, device=dev)) for t in range(3)]
+    torch.cuda.synchronize()
+    hbm.LAUNCHES = 0
+    times, spans, fracs = [], [], []
+    for w in worlds:
+        t0 = time.perf_counter()
+        span, out = event_ms(lambda: hbm.rumor_run_hbm(
+            w, rounds, n, 2, 1, 0.01, 1024, True))
+        times.append(time.perf_counter() - t0)
+        spans.append(span)
+        fracs.append(frac(out.infected, n))
+    k4_launches = hbm.LAUNCHES
+    rps = rounds / statistics.median(times)
+    print(f"[4] big-N rumor_run_hbm N=2^24, {rounds} rounds, churn 0.01, "
+          f"block_rows 1024, all_alive: median {rps:.1f} rounds/s (host "
+          f"clock); call spans {[round(s, 3) for s in spans]} ms (CUDA "
+          f"events); infected {fracs}; K4 launches {k4_launches}")
+    assert all(ENDEMIC[0] < f < ENDEMIC[1] for f in fracs), fracs
+    assert k4_launches > 0, "the big-N path did not launch K4"
+    # the entry's parts on the last call's inputs: the host draws, and K4
+    # alone on the table they give
+    t0 = time.perf_counter()
+    table = hbm.hbm_table(int(w.rnd), rounds, n, 2)
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    k4_total, _ = event_ms(lambda: hbm.rumor_run_hbm_cuda(
+        w, table, n, 1, 0.01, True))
+    k4_ms = k4_total / rounds
+    idle = 1.0 - k4_total / statistics.median(spans)
+    W = n // 32
+    k4_bound = bound_ms(4 * W * 4 + table.shape[1] * 4 + 8,
+                        W * round_ops_per_word(2, 1, 0.01, True), int_rate)
+    print(f"[4] K4 {k4_ms * 1e3:.2f} us/launch ({k4_total:.2f} ms for "
+          f"{rounds}); plain {plain_hbm_ms:.3f} ms/round; bound "
+          f"{k4_bound[0] * 1e3:.3f} us by {k4_bound[1]}; host draws "
+          f"{draw_ms:.1f} ms a call; card idle {idle:.3f} of a call's "
+          f"span")
+
+    # ---- where the kernels' time goes: the same launches without churn
+    # (no Bernoulli mask), after the counts above were read
+    w = demers.rumor_pack(demers.rumor_init(N_FUSED, 0, device=dev))
+    t3 = rumor_kernel.rumor_table(0, 20000, N_FUSED, 2)
+    k3_calm, _ = event_ms(lambda: rumor_kernel.rumor_run_fused_cuda(
+        w, t3, N_FUSED, 1, 0.0))
+    w = demers.rumor_pack(demers.rumor_init(N_HBM, 0, device=dev))
+    k4_calm, _ = event_ms(lambda: hbm.rumor_run_hbm_cuda(
+        w, table, N_HBM, 1, 0.0, True))
+    print(f"[4] without churn: K3 {k3_calm / 20000 * 1e3:.3f} us/round "
+          f"(with churn {k3_ms / 20000 * 1e3:.3f}); K4 "
+          f"{k4_calm / rounds * 1e3:.2f} us/launch (with churn "
+          f"{k4_ms * 1e3:.2f})")
+
+    # ---- 5. the kernels line, the card, the result ---------------------
+    kernels = [
+        {"name": "rumor_fused", "route": "cuda",
+         "source": "partisan_tpu_torch/csrc/rumor_fused.cu",
+         "replaces": "partisan_tpu/ops/rumor_kernel.py:180",
+         "launches": k3_launches, "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None, "n": N_FUSED, "rounds": 20000},
+        {"name": "rumor_hbm", "route": "cuda",
+         "source": "partisan_tpu_torch/csrc/rumor_hbm.cu",
+         "replaces": "partisan_tpu/ops/rumor_kernel_hbm.py:448",
+         "launches": k4_launches, "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": plain_hbm_ms,
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": None, "n": N_HBM, "rounds": 1},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

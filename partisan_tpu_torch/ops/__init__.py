@@ -1,0 +1,1 @@
+"""Packed-word ops and the hand-written CUDA kernels behind them."""
