@@ -23,7 +23,24 @@ It builds the CUDA kernels from ``partisan_tpu_torch/csrc/`` (nvcc, into
    N=2^24, 3000 rounds, churn 0.01, three timed runs on fresh worlds; same
    window, and K4 must have launched; then the entry's host draws and K4
    alone on the last call's inputs, and both kernels without churn;
-5. one JSON line of every ported kernel (launches, error against the
+5. K1 (route_select.cu) against its plain version: bit-equality of the
+   [n, c] output at (m = n = 2^20, c 2), (1000003, 2^18, 4), (2^20, 7, 3),
+   (1, 1, 1) and all -1 targets;
+6. the dense HyParView path on the card against the same path on the
+   CPU at N=2^14: 30 rounds of run_dense at churn 0.01, then 2 blocks of
+   run_dense_staggered(..., 0.01, 5); every leaf bit-equal;
+7. the dense main path, perf_suite's hv_dense_1048576: N=2^20, the
+   reference cadence (shuffle 10, promotion 5), k 5, churn 0.01,
+   run_dense_staggered for 20 blocks (200 rounds), one warm-up and three
+   timed trials from dense_init(cfg.replace(seed=11 + 13 t)); then 60
+   churn-free run_dense rounds (the heal) and connectivity: every node
+   live, reached/live >= 0.9999, mean_active >= min_active_size, and K1
+   launched;
+8. where the dense path's time goes: one call each of the heavy_ps,
+   heavy_p and light programs, the [N] threefry draws of a round, K1
+   against its plain version and torch.sort of the same keys, and a
+   profiler window over one staggered block for the card's idle share;
+9. one JSON line of every ported kernel (launches, error against the
    plain version, times, bound), then the card's name and power limit,
    then the result line {"ok": true, "device": {...}}.
 
@@ -51,6 +68,9 @@ INT32_OPS_PER_SM_CLOCK = 64
 N_FUSED = 1 << 20
 N_HBM = 1 << 24
 ENDEMIC = (0.55, 0.75)   # tests/test_rumor_kernel.py:52-55
+N_DENSE = 1 << 20        # scripts/perf_suite.py:225-246, hv_dense_1048576
+N_DENSE_CHECK = 1 << 14
+REACHED = 0.9999         # results.csv:10: 1048560 of 1048576 reached
 
 
 def smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -96,6 +116,204 @@ def bound_ms(bytes_moved: int, ops: float, ops_per_s: float
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def route_ops(m: int, c: int) -> float:
+    """32-bit integer operations reverse_select needs for m proposers:
+    the pack (bounds test, select, mix32, shifts and the 64-bit compose,
+    ~16 a row), the emit (bucket test and a look-back of up to c, ~6 + 2c
+    a row), and the m log2(m) compare-and-move steps any comparison sort
+    of the m 64-bit keys needs (~4 each)."""
+    import math
+    return m * (16 + 6 + 2 * c) + 4 * m * math.log2(max(m, 2))
+
+
+def route_targets(m: int, n: int, seed: int, device):
+    """[m] int32: 80% in [0, n), the rest -1 or just outside it."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = rng.integers(-2, n + 2, m)
+    t = np.where(rng.random(m) < 0.8, t, -1).astype(np.int32)
+    return torch.from_numpy(t).to(device)
+
+
+def dense_phases(dev, card: str, int_rate: float) -> dict:
+    """Phases 5-8: K1 against its plain version, the dense path on the
+    card against the CPU, the N=2^20 main path and its breakdown.
+    Returns K1's entry of the kernels line."""
+    import numpy as np
+    import torch
+    from partisan_tpu_torch import prng
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.models import hyparview_dense as hd
+    from partisan_tpu_torch.ops import route_kernel as rk
+
+    # ---- 5. K1 against its plain version -------------------------------
+    k1_err = 0
+    for m, n, c in ((N_DENSE, N_DENSE, 2), (1000003, 1 << 18, 4),
+                    (N_DENSE, 7, 3), (1, 1, 1), (9, 4, 2)):
+        t = route_targets(m, n, m + n + c, dev)
+        if (m, n, c) == (9, 4, 2):
+            t = torch.full((m,), -1, dtype=torch.int32, device=dev)
+        salt = 0x9E3779B9 ^ m
+        want = rk.reverse_select_plain(t, salt, n, c)
+        got = rk.reverse_select_cuda(t, salt, n, c)
+        torch.cuda.synchronize()
+        err = int((want.long() - got.long()).abs().max())
+        k1_err = max(k1_err, err)
+        print(f"[5] K1 vs plain, m={m} n={n} c={c}: max_abs_err {err}, "
+              f"routed {int((got >= 0).sum())}")
+        assert err == 0 and torch.equal(want, got), \
+            "K1 disagrees with its plain version"
+
+    # ---- 6. the dense path on the card against the CPU ------------------
+    cfg = Config(n_nodes=N_DENSE_CHECK)
+    leaves = []
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        s = hd.dense_init(cfg, device=d)
+        s = hd.run_dense(s, 30, cfg, 0.01)
+        s = hd.run_dense_staggered(s, 2, cfg, 0.01, 5)
+        leaves.append(hd.state_to_numpy(s))
+        print(f"[6] dense N=2^14, 30 + 20 rounds on {d}: "
+              f"{time.perf_counter() - t0:.2f} s (host clock)")
+    for f in ("active", "passive", "alive", "rnd", "partition"):
+        same = np.array_equal(getattr(leaves[0], f), getattr(leaves[1], f))
+        assert same, f"the dense path on the card differs from the CPU: {f}"
+    print("[6] every leaf bit-equal between the card and the CPU")
+
+    # ---- 7. the main path: hv_dense_1048576 ------------------------------
+    cfg = Config(n_nodes=N_DENSE)
+    blocks, k, churn = 20, 5, 0.01
+    rounds = blocks * 2 * k
+
+    def trial(seed):
+        w0 = hd.dense_init(cfg.replace(seed=seed), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = hd.run_dense_staggered(w0, blocks, cfg, churn, k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    rk.LAUNCHES = 0
+    trial(cfg.seed)                                   # warm-up
+    times = []
+    for t in range(3):
+        dt, out = trial(11 + 13 * t)
+        times.append(dt)
+    k1_launches = rk.LAUNCHES
+    per_run = k1_launches // 4
+    rps = rounds / statistics.median(times)
+    print(f"[7] dense main path N=2^20, {rounds} rounds staggered k={k}, "
+          f"churn {churn}: median {rps:.2f} rounds/s (host clock, {card}); "
+          f"trials {[round(x, 3) for x in times]} s; K1 launches "
+          f"{k1_launches} ({per_run} a run)")
+    t0 = time.perf_counter()
+    out = hd.run_dense(out, 60, cfg)
+    h = {key: float(v) for key, v in hd.connectivity(out).items()}
+    print(f"[7] after the 60-round heal ({time.perf_counter() - t0:.1f} s):"
+          f" {json.dumps(h)}")
+    assert h["live"] == N_DENSE, h
+    assert h["reached"] / h["live"] >= REACHED, h
+    assert h["mean_active"] >= cfg.min_active_size, h
+    assert k1_launches > 0, "the dense main path did not launch K1"
+
+    # ---- 8. where the dense path's time goes -----------------------------
+    programs = dict(zip(("heavy_ps", "heavy_p", "light"),
+                        hd.staggered_programs(cfg, churn, k)))
+    rnd = int(out.rnd)
+    prog_ms = {}
+    for name, p in programs.items():
+        p(out, rnd)
+        torch.cuda.synchronize()
+        prog_ms[name], _ = event_ms(lambda: p(out, rnd))
+    key = prng.fold_in(prng.PRNGKey(cfg.seed ^ hd.ROUND_SEED), rnd)
+
+    def draws():
+        u = prng.uniform(prng.fold_in(key, 0), (N_DENSE,), device=dev)
+        a = prng.randint(prng.fold_in(key, 1), (N_DENSE,), 0, N_DENSE,
+                         device=dev)
+        b = prng.randint(prng.fold_in(key, 40), (N_DENSE,), 0, N_DENSE,
+                         device=dev)
+        return u, a, b
+
+    draws()
+    draw_ms, _ = event_ms(draws)
+    run_ms = statistics.median(times) * 1e3
+    sum_ms = blocks * (prog_ms["heavy_ps"] + prog_ms["heavy_p"]
+                       + 2 * (k - 1) * prog_ms["light"])
+    print(f"[8] one call each at N=2^20 (CUDA events): heavy_ps "
+          f"{prog_ms['heavy_ps']:.2f} ms, heavy_p {prog_ms['heavy_p']:.2f} "
+          f"ms, light {prog_ms['light']:.2f} ms; x their counts in a run "
+          f"{sum_ms:.0f} ms of {run_ms:.0f}")
+    print(f"[8] the [N] threefry draws of a round (uniform + 2 randint): "
+          f"{draw_ms:.2f} ms = {draw_ms / prog_ms['light']:.3f} of a light "
+          f"round, {rounds * draw_ms / run_ms:.3f} of a run")
+
+    t = route_targets(N_DENSE, N_DENSE, 1, dev)
+    salt = 12345
+    keys = rk.packed_keys(t, salt, N_DENSE)
+    reps = 20
+    timed = {}
+    for name, fn in (("k1", lambda: rk.reverse_select_cuda(t, salt, N_DENSE,
+                                                           2)),
+                     ("plain", lambda: rk.reverse_select_plain(t, salt,
+                                                               N_DENSE, 2)),
+                     ("sort", lambda: torch.sort(keys, stable=True))):
+        fn()
+        torch.cuda.synchronize()
+        total, _ = event_ms(lambda: [fn() for _ in range(reps)])
+        timed[name] = total / reps
+    # each input read once, each output written once: the targets and
+    # [n, c]; the bitonic sort's 64-bit key traffic is scratch, not counted
+    k1_bytes = N_DENSE * 4 + N_DENSE * 2 * 4
+    k1_bound = bound_ms(k1_bytes, route_ops(N_DENSE, 2), int_rate)
+    print(f"[8] K1 m=n=2^20 c=2: {timed['k1']:.4f} ms a call; plain "
+          f"{timed['plain']:.4f} ms; torch.sort(stable) of the same keys "
+          f"{timed['sort']:.4f} ms; bound {k1_bound[0] * 1e3:.2f} us by "
+          f"{k1_bound[1]}; {per_run} calls a main-path run = "
+          f"{per_run * timed['k1']:.1f} ms of {run_ms:.0f}")
+
+    # the card's idle share over one staggered block (2k rounds): the
+    # block's wall time without the profiler, then the kernels' busy time
+    # in a profiled run of the same block
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    hd.run_dense_staggered(out, 1, cfg, churn, k)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        hd.run_dense_staggered(out, 1, cfg, churn, k)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    if busy_ms > 0:
+        print(f"[8] one block (2k rounds): {plain_wall_ms:.1f} ms wall "
+              f"without the profiler; profiled: card busy {busy_ms:.1f} ms "
+              f"of {wall_ms:.1f} ms wall, {sum(e.count for e in on_card)} "
+              f"kernels; idle {1 - busy_ms / wall_ms:.3f} profiled, "
+              f"{1 - busy_ms / plain_wall_ms:.3f} against the plain wall")
+        top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
+        for e in top:
+            print(f"    {e.self_device_time_total / 1e3:8.2f} ms "
+                  f"x{e.count:<5d} {e.key[:90]}")
+    else:
+        print("[8] profiler showed no device time: idle share not measured")
+
+    return {"name": "route_select", "route": "cuda",
+            "source": "partisan_tpu_torch/csrc/route_select.cu",
+            "replaces": "partisan_tpu/ops/route_kernel.py:172",
+            "launches": k1_launches, "max_abs_err": k1_err,
+            "ms": timed["k1"], "plain_ms": timed["plain"],
+            "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+            "library_ms": timed["sort"], "m": N_DENSE, "n": N_DENSE,
+            "c": 2}
 
 
 def max_abs_err(a, b) -> int:
@@ -312,7 +530,9 @@ def main() -> int:
           f"{k4_calm / rounds * 1e3:.2f} us/launch (with churn "
           f"{k4_ms * 1e3:.2f})")
 
-    # ---- 5. the kernels line, the card, the result ---------------------
+    route = dense_phases(dev, card, int_rate)
+
+    # ---- 9. the kernels line, the card, the result ---------------------
     kernels = [
         {"name": "rumor_fused", "route": "cuda",
          "source": "partisan_tpu_torch/csrc/rumor_fused.cu",
@@ -328,6 +548,7 @@ def main() -> int:
          "ms": k4_ms, "plain_ms": plain_hbm_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": None, "n": N_HBM, "rounds": 1},
+        route,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,7 +7,11 @@ Slice 1 holds the Demers rumor-mongering path: ``prng`` (the ``jax.random``
 threefry subset, bit-exact), ``ops.bitset`` (packed int32 words),
 ``models.demers`` (section 3, the rumor fast path) and the two hand-written
 CUDA kernels behind ``ops.rumor_kernel`` (K3) and ``ops.rumor_kernel_hbm``
-(K4).
+(K4).  Slice 2 holds the dense HyParView round: ``config`` (a copy of the
+reference's), ``ops.padded_set`` (batched view sets),
+``ops.shard_exchange.reverse_select`` over the K1 CUDA kernel behind
+``ops.route_kernel``, ``models.dense_cadence`` and
+``models.hyparview_dense``.
 
 Entry points take ``device=None``, which means ``"cuda"``; without a card
 they raise unless the caller passes ``device="cpu"``.

@@ -24,7 +24,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("rumor_fused.cu", "rumor_hbm.cu")
+SOURCES = ("rumor_fused.cu", "rumor_hbm.cu", "route_select.cu")
 HEADERS = ("rumor_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +40,8 @@ SIGNATURES = {
     # alive, inf, hot, counts, stream
     "rumor_hbm_run": (_P, _I, _I, _I, _I, _I, _U, _I, _U, _P, _P, _P, _P,
                       _P),
+    # targets, salt, m, n, c, bits, scratch, out, stream
+    "route_select_run": (_P, _U, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lib = None

@@ -6,6 +6,13 @@ Keys are int64 tensors of shape ``[..., 2]`` holding the two uint32 words
 (torch has no usable uint32 arithmetic); every function takes a leading
 batch of keys, so a whole run's per-round draws are one vectorised pass.
 Work happens on the keys' device.  No global torch RNG is touched.
+
+One key held on the CPU (shape ``[2]``) is hashed with its words as
+Python ints: ``fold_in``, ``split`` and ``bits`` of it cost microseconds
+instead of a chain of scalar tensor ops, and ``bits``, ``randint`` and
+``uniform`` with a ``device`` draw there with the words as scalars, so
+no key is copied to the card.  The dense rounds derive their per-round
+keys this way and never wait on the card for them.
 """
 
 from __future__ import annotations
@@ -52,18 +59,37 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def _host_words(key: torch.Tensor):
+    """The two words of one key held on the CPU as Python ints; None for
+    a batch of keys or a key on another device."""
+    if key.dim() == 1 and key.device.type == "cpu":
+        return key.tolist()
+    return None
+
+
+def _key(words) -> torch.Tensor:
+    return torch.tensor(words, dtype=torch.int64)
+
+
 def _hash_counts(key: torch.Tensor, counts: torch.Tensor):
     """threefry(key, (0, counts)) with key ``[..., 2]`` and counts of any
-    trailing shape: outputs have shape ``[..., *counts.shape]``."""
-    lead = key.shape[:-1]
-    view = lead + (1,) * counts.dim()
-    k1 = key[..., 0].reshape(view)
-    k2 = key[..., 1].reshape(view)
+    trailing shape: outputs have shape ``[..., *counts.shape]``.  The
+    counts' device is the draw's."""
+    words = _host_words(key)
+    if words is not None:
+        k1, k2 = words
+    else:
+        view = key.shape[:-1] + (1,) * counts.dim()
+        k1 = key[..., 0].reshape(view)
+        k2 = key[..., 1].reshape(view)
     return threefry2x32(k1, k2, torch.zeros_like(counts), counts)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``; ``data`` broadcasts against the key batch."""
+    words = _host_words(key)
+    if words is not None and isinstance(data, int):
+        return _key(threefry2x32(*words, 0, data & MASK))
     data = _u32(data).to(key.device)
     k1, k2 = key[..., 0], key[..., 1]
     a, b = threefry2x32(k1, k2, torch.zeros_like(data), data)
@@ -73,35 +99,64 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (fold-like under partitionable threefry):
     ``[..., 2] -> [..., num, 2]``."""
+    words = _host_words(key)
+    if words is not None:
+        return _key([threefry2x32(*words, 0, i) for i in range(num)])
     counts = torch.arange(num, dtype=torch.int64, device=key.device)
     a, b = _hash_counts(key, counts)
     return torch.stack((a, b), dim=-1)
 
 
-def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
+def bits(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values in
-    [0, 2^32): ``[..., 2] -> [..., *shape]``."""
+    [0, 2^32): ``[..., 2] -> [..., *shape]``, drawn on ``device`` (by
+    default the key's)."""
     shape = tuple(shape)
+    device = key.device if device is None else torch.device(device)
+    words = _host_words(key)
+    if words is not None and not shape and device.type == "cpu":
+        a, b = threefry2x32(*words, 0, 0)
+        return _key(a ^ b)
     size = 1
     for s in shape:
         size *= s
     counts = torch.arange(size, dtype=torch.int64,
-                          device=key.device).reshape(shape)
+                          device=device).reshape(shape)
     a, b = _hash_counts(key, counts)
     return a ^ b
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int
-            ) -> torch.Tensor:
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
+            maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform`` in float32, as jax 0.9.0's ``_uniform``
+    computes it: the top 23 bits of ``bits`` under the exponent of 1.0,
+    bit-cast to float32, minus 1, scaled to ``[minval, maxval)`` and
+    floored at ``minval``.  The bit-cast is an int32 ``view``, so exact.
+    XLA contracts the scale and shift into one fused multiply-add, so
+    they run in float64 (the float32 product is exact there) and round
+    to float32 once; on [0, 1), the churn draw, both steps are exact.
+    The float32 bounds are worked out on the CPU: a tensor built on the
+    card from a Python number would wait for the card's stream."""
+    raw = bits(key, shape, device)
+    f = ((raw >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = float(torch.tensor(maxval, dtype=torch.float32) - lo)
+    scaled = (f - 1.0).double() * span + float(lo)
+    return scaled.float().clamp_min(float(lo))
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
     """``jax.random.randint`` with int32 output, line for line after
     ``jax._src.random._randint``: two bit streams from ``split(key)``,
     reduced modulo the span with a ``2^32 mod span`` multiplier, in
-    wrapping uint32 arithmetic."""
+    wrapping uint32 arithmetic, drawn on ``device`` (by default the
+    key's)."""
     shape = tuple(shape)
     assert -2 ** 31 <= minval and maxval <= 2 ** 31 - 1
     keys = split(key, 2)
-    higher = bits(keys[..., 0, :], shape)
-    lower = bits(keys[..., 1, :], shape)
+    higher = bits(keys[..., 0, :], shape, device)
+    lower = bits(keys[..., 1, :], shape, device)
     span = (maxval - minval) & MASK if maxval > minval else 1
     multiplier = (2 ** 16) % span
     multiplier = ((multiplier * multiplier) & MASK) % span

@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from partisan_tpu_torch.models import demers
-from partisan_tpu_torch.ops import bitset, rumor_kernel, rumor_kernel_hbm
+from partisan_tpu_torch.config import Config
+from partisan_tpu_torch.models import demers, hyparview_dense
+from partisan_tpu_torch.ops import (bitset, route_kernel, rumor_kernel,
+                                    rumor_kernel_hbm, shard_exchange)
 
 CELL = 4096
 
@@ -27,6 +29,14 @@ def packed_world(n, seed, hot_frac=0.5, dead_frac=0.1, device="cpu"):
     words = [bitset.from_mask(torch.from_numpy(m)).to(device) for m in masks]
     return demers.RumorWorldPacked(
         *words, torch.tensor(seed, dtype=torch.int32, device=device))
+
+
+def route_targets(m, n, seed, device="cpu"):
+    """80% of the rows in [0, n), the rest -1 or just outside."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(-2, n + 2, m)
+    t = np.where(rng.random(m) < 0.8, t, -1).astype(np.int32)
+    return torch.from_numpy(t).to(device)
 
 
 @pytest.fixture
@@ -47,6 +57,17 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
         assert out.infected.device.type == "cpu"
         assert int(out.rnd) == int(w.rnd) + 5
         assert torch.equal(out.alive, w.alive)
+
+
+def test_cpu_reverse_select_runs_the_plain_version_without_launching():
+    t = route_targets(300, 40, 1)
+    before = route_kernel.LAUNCHES
+    got = shard_exchange.reverse_select(t, 5, 40, 2)
+    assert route_kernel.LAUNCHES == before
+    assert torch.equal(got, route_kernel.reverse_select_plain(t, 5, 40, 2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        route_kernel.reverse_select_cuda(t, 5, 40, 2)
+    assert route_kernel.LAUNCHES == before
 
 
 def test_hbm_plain_churn_reaches_the_endemic_window():
@@ -107,3 +128,41 @@ def test_hbm_kernel_matches_plain(cuda, all_alive, stop_k, churn):
         assert rumor_kernel_hbm.LAUNCHES == before + 6
         assert torch.equal(want.infected, got.infected)
         assert torch.equal(want.hot, got.hot)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,c", [(1 << 20, 1 << 20, 2), (1000003, 1 << 18, 4),
+                                   (1 << 20, 7, 3), (1, 1, 1), (4097, 100, 1),
+                                   (4096, 4096, 2), (5000, 300, 5)])
+def test_route_kernel_matches_plain(cuda, m, n, c):
+    t = route_targets(m, n, m + n + c, cuda)
+    for salt in (0, 0x9E3779B9, 0xFFFFFFFF):
+        want = route_kernel.reverse_select_plain(t, salt, n, c)
+        before = route_kernel.LAUNCHES
+        got = route_kernel.reverse_select_cuda(t, salt, n, c)
+        torch.cuda.synchronize()
+        assert route_kernel.LAUNCHES == before + 1
+        assert torch.equal(want, got)
+    none = torch.full((9,), -1, dtype=torch.int32, device=cuda)
+    assert (route_kernel.reverse_select_cuda(none, 3, 4, 2) == -1).all()
+
+
+@pytest.mark.gpu
+def test_dense_round_on_the_card_equals_the_cpu(cuda):
+    """The whole dense path (every torch op and K1) on the card against
+    the same path on the CPU, which the parity tests hold to the
+    reference: every leaf bit-equal after churned every-round and
+    staggered rounds at N=4096."""
+    cfg = Config(n_nodes=4096)
+    out = {}
+    for dev in ("cpu", cuda):
+        before = route_kernel.LAUNCHES
+        s = hyparview_dense.dense_init(cfg, device=dev)
+        s = hyparview_dense.run_dense(s, 12, cfg, 0.01)
+        s = hyparview_dense.run_dense_staggered(s, 1, cfg, 0.01, 5)
+        out[str(dev)] = hyparview_dense.state_to_numpy(s)
+        launched = route_kernel.LAUNCHES - before
+        assert launched == (0 if dev == "cpu" else 12 * 2 + 3), launched
+    for f in ("active", "passive", "alive", "rnd", "partition"):
+        np.testing.assert_array_equal(getattr(out["cpu"], f),
+                                      getattr(out["cuda"], f), err_msg=f)

@@ -38,7 +38,8 @@ def test_port_sources_import_no_jax_or_reference():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, partisan_tpu_torch.models.demers, "
             "partisan_tpu_torch.ops.rumor_kernel, "
-            "partisan_tpu_torch.ops.rumor_kernel_hbm; "
+            "partisan_tpu_torch.ops.rumor_kernel_hbm, "
+            "partisan_tpu_torch.models.hyparview_dense; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -55,6 +56,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         demers.world_from_numpy(demers.world_to_numpy(w))
     assert demers.rumor_run(w, 2, 4096).infected.device.type == "cpu"
+
+
+def test_dense_entry_points_raise_without_a_card(monkeypatch):
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.models import hyparview_dense as hd
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(n_nodes=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hd.dense_init(cfg)
+    s = hd.dense_init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hd.state_from_numpy(hd.state_to_numpy(s))
+    assert hd.run_dense(s, 2, cfg).active.device.type == "cpu"
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

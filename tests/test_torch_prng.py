@@ -91,3 +91,46 @@ def test_node_round_decision_keys_match_reference():
     np.testing.assert_array_equal(
         np.asarray(jax.vmap(lambda k: ref_prng.decision_key(k, 5))(jk)),
         u32(prng.decision_key(tk, 5)))
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-2.5, 3.7), (1e-3, 1e3),
+                                   (5.0, 6.0)])
+def test_uniform_matches_jax(lo, hi):
+    """float32 ``uniform`` bit for bit, for a single key (hashed from its
+    words) and a key batch, including jax's fused scale-and-shift."""
+    for seed in SEEDS[:8]:
+        jk = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+        want = np.asarray(jax.random.uniform(jk, (4096,), minval=lo,
+                                             maxval=hi))
+        tk = prng.fold_in(prng.PRNGKey(seed), 3)
+        for key, dev in ((tk, None), (tk, "cpu"), (tk[None], None)):
+            got = prng.uniform(key, (4096,), lo, hi, device=dev).numpy()
+            np.testing.assert_array_equal(want.view(np.uint32),
+                                          got.reshape(-1).view(np.uint32))
+    keys = jax.random.split(jax.random.PRNGKey(1), 5)
+    want = jax.vmap(lambda k: jax.random.uniform(k, (3,), minval=lo,
+                                                 maxval=hi))(keys)
+    got = prng.uniform(prng.split(prng.PRNGKey(1), 5), (3,), lo, hi)
+    np.testing.assert_array_equal(np.asarray(want).view(np.uint32),
+                                  got.numpy().view(np.uint32))
+
+
+def test_single_cpu_key_matches_key_batch():
+    """One key on the CPU is hashed from its words as Python ints (the
+    dense rounds' per-round keys): fold_in, split, bits and randint give
+    what the tensor path gives for the same key as a batch of one."""
+    for seed in SEEDS[:8]:
+        tk = prng.PRNGKey(seed ^ 0xDE45E)
+        for d in (0, 17, 2 ** 31 - 1, 2 ** 32 - 1):
+            tk2, tb = prng.fold_in(tk, d), prng.fold_in(tk[None], d)
+            assert tk2.dtype == torch.int64 and tk2.shape == (2,)
+            np.testing.assert_array_equal(tk2.numpy(), tb[0].numpy())
+            assert int(prng.bits(tk2)) == int(prng.bits(tb)[0])
+            np.testing.assert_array_equal(prng.split(tk2, 3).numpy(),
+                                          prng.split(tb, 3)[0].numpy())
+            np.testing.assert_array_equal(
+                prng.randint(tk2, (257,), 0, 1 << 20).numpy(),
+                prng.randint(tb, (257,), 0, 1 << 20)[0].numpy())
+            np.testing.assert_array_equal(
+                prng.bits(tk2, (5, 3), device="cpu").numpy(),
+                prng.bits(tb, (5, 3))[0].numpy())
