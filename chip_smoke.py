@@ -40,9 +40,32 @@ It builds the CUDA kernels from ``partisan_tpu_torch/csrc/`` (nvcc, into
    heavy_p and light programs, the [N] threefry draws of a round, K1
    against its plain version and torch.sort of the same keys, and a
    profiler window over one staggered block for the card's idle share;
-9. one JSON line of every ported kernel (launches, error against the
-   plain version, times, bound), then the card's name and power limit,
-   then the result line {"ok": true, "device": {...}}.
+10. K2 (bucket_pack.cu) against its plain version: bit-equality of tgt,
+    order and dropped on [8, 2359296] shard ids with ~1/3 invalid (d 8,
+    b 589824: the main path's shape), m = 1, all invalid, d = 1 and a
+    tight b that drops; and K1 at the sharded route's shape (m =
+    4718592, n = 786432, c = 6);
+11. the sharded dense rounds (8 virtual shards) on the card against the
+    CPU at N=2^14: hyparview 20 rounds at churn 0.01 on the main path's
+    cadence, plumtree 10 rounds, scamp 20 rounds at churn 0.01, and 2
+    blocks of run_sharded_staggered(k=5) on the default cadence; every
+    leaf bit-equal;
+12. the sharded main path, the reference's
+    dense_scale_hyparview_n1048576x8_churn0p01 (scripts/
+    dense_scale_suite.py:50-54): N=2^20 over 8 shards, shuffle 4,
+    promotion 2, churn 0.01, the flat round; 4 warm-up and 40 settling
+    rounds, then 3 timed windows of 20 rounds (median sharded dense
+    rounds/s); then 40 churn-free rounds and the reference tests' gates
+    (every node live, >= 0.99 with an active view, none isolated,
+    symmetry >= 0.98, reached/live >= 0.999); K2 and K1 launched;
+13. where a sharded round's time goes (CUDA events): the exchange (K2,
+    scatter, transpose), the 8 K1 calls, the merge and the rest of the
+    body; K2 on the main path's outbox and K1 on one shard's received
+    rows, each against its bound, its plain version and torch.sort; a
+    profiler window over one round (phases 10-13 print their host time);
+9. (printed last) one JSON line of every ported kernel (launches, error
+   against the plain version, times, bound), then the card's name and
+   power limit, then the result line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero with no result
 line.  Without a CUDA device, or outside a checkout, it exits 2.
@@ -71,6 +94,9 @@ ENDEMIC = (0.55, 0.75)   # tests/test_rumor_kernel.py:52-55
 N_DENSE = 1 << 20        # scripts/perf_suite.py:225-246, hv_dense_1048576
 N_DENSE_CHECK = 1 << 14
 REACHED = 0.9999         # results.csv:10: 1048560 of 1048576 reached
+N_SHARDED = 1 << 20      # dense_scale_suite.py:50-54, the explicit arm
+N_SHARDED_CHECK = 1 << 14
+SHARDS = 8               # the reference's v5e-8 layout
 
 
 def smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -316,6 +342,291 @@ def dense_phases(dev, card: str, int_rate: float) -> dict:
             "c": 2}
 
 
+def bucket_ops(rows: int, d: int) -> float:
+    """32-bit integer operations the bucket pack needs: per row the
+    bucket test, the rank (count of earlier rows of its key) and the
+    target, ~10 a row; plus a scan over the d + 1 bucket totals."""
+    return 10.0 * rows + 4 * (d + 1)
+
+
+def sharded_phases(dev, card: str, int_rate: float) -> dict:
+    """Phases 10-13: K2 against its plain version (and one K1 case at the
+    sharded route's shape), the sharded rounds on the card against the
+    CPU, the N=2^20 x 8-shard main path and its breakdown.  Returns K2's
+    entry of the kernels line and K1's launches and times on the sharded
+    path (keys for K1's entry)."""
+    import numpy as np
+    import torch
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.models import hyparview_dense as hd
+    from partisan_tpu_torch.ops import route_kernel as rk
+    from partisan_tpu_torch.ops import shard_exchange as sx
+    from partisan_tpu_torch.parallel import dense_dataplane as dd
+    from partisan_tpu_torch.parallel import mesh as pm
+
+    cfg = Config(n_nodes=N_SHARDED, shuffle_interval=4,
+                 random_promotion_interval=2)
+    n_loc = N_SHARDED // SHARDS
+    slots = dd.hv_mail_slots(cfg)
+    m_loc = n_loc * slots
+    b_cap = sx.default_bucket_cap(m_loc, SHARDS)
+
+    def phase_done(no: int, t_start: float) -> float:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"[{no}] phase took {now - t_start:.1f} s (host clock)")
+        return now
+
+    # ---- 10. K2 against its plain version ------------------------------
+    t_phase = time.perf_counter()
+    k2_err = 0
+    for shape, d, b, invalid in (((SHARDS, m_loc), SHARDS, b_cap, 1 / 3),
+                                 ((1,), 1, 1, 0.0),
+                                 ((SHARDS, 4099), SHARDS, 16, 1.0),
+                                 ((2, 100001), 1, 70000, 0.2),
+                                 ((SHARDS, 100001), SHARDS, 3000, 0.1)):
+        rng = np.random.default_rng(sum(shape) + d)
+        s = rng.integers(0, d, shape)
+        s = np.where(rng.random(shape) < invalid, d, s).astype(np.int32)
+        s = torch.from_numpy(s).to(dev)
+        want = rk.bucket_pack_plain(s, d, b)
+        got = rk.bucket_pack_cuda(s, d, b)
+        torch.cuda.synchronize()
+        err = max(int((w.long() - g.long()).abs().max()) if w.numel() else 0
+                  for w, g in zip(want, got))
+        k2_err = max(k2_err, err)
+        print(f"[10] K2 vs plain, shard ids {list(shape)}, d={d} b={b}, "
+              f"{invalid:.2f} invalid: max_abs_err {err}, dropped "
+              f"{got[2].tolist()}")
+        assert err == 0 and all(torch.equal(w, g) for w, g in
+                                zip(want, got)), \
+            "K2 disagrees with its plain version"
+    # K1 at the sharded route's shape: m = D*B received rows, n = 6 n_loc
+    m_rt, n_rt = SHARDS * b_cap, dd.HV_KINDS * n_loc
+    t = route_targets(m_rt, n_rt, 3, dev)
+    want = rk.reverse_select_plain(t, 77, n_rt, 6)
+    got = rk.reverse_select_cuda(t, 77, n_rt, 6)
+    torch.cuda.synchronize()
+    err = int((want.long() - got.long()).abs().max())
+    print(f"[10] K1 vs plain at the route shape m={m_rt} n={n_rt} c=6: "
+          f"max_abs_err {err}, routed {int((got >= 0).sum())}")
+    assert err == 0, "K1 disagrees with its plain version"
+    t_phase = phase_done(10, t_phase)
+
+    # ---- 11. the sharded rounds on the card against the CPU -------------
+    small = Config(n_nodes=N_SHARDED_CHECK, shuffle_interval=4,
+                   random_promotion_interval=2)
+    runs = (("hyparview", small, dict(churn=0.01), 20, dd.sharded_dense_init),
+            ("plumtree", small, dict(model="plumtree"), 10,
+             dd.sharded_pt_init),
+            ("scamp", Config(n_nodes=N_SHARDED_CHECK),
+             dict(model="scamp", churn=0.01), 20, dd.sharded_scamp_init),
+            ("staggered", Config(n_nodes=N_SHARDED_CHECK), {}, 2,
+             dd.sharded_dense_init))
+    for name, c, kw, count, init in runs:
+        leaves = []
+        for d in ("cpu", dev):
+            t0 = time.perf_counter()
+            mesh = pm.make_mesh(SHARDS, d)
+            st = init(c, SHARDS, device=d)
+            if name == "staggered":
+                st = dd.run_sharded_staggered(c, mesh, st, count, k=5)
+            else:
+                st = dd.run_sharded(dd.make_sharded_dense_round(c, mesh, **kw),
+                                    st, count)
+            leaves.append(flat_leaves(dd.state_to_numpy(st)))
+            print(f"[11] sharded {name} N=2^14 D={SHARDS}, {count} "
+                  f"{'blocks' if name == 'staggered' else 'rounds'} on {d}: "
+                  f"{time.perf_counter() - t0:.2f} s (host clock)")
+        for f in leaves[0]:
+            assert np.array_equal(leaves[0][f], leaves[1][f]), \
+                f"sharded {name} on the card differs from the CPU: {f}"
+    print("[11] every leaf bit-equal between the card and the CPU")
+    t_phase = phase_done(11, t_phase)
+
+    # ---- 12. the main path: N=2^20 over 8 virtual shards -----------------
+    mesh = pm.make_mesh(SHARDS, dev)
+    step = dd.make_sharded_dense_round(cfg, mesh, churn=0.01)
+    st = dd.sharded_dense_init(cfg, SHARDS, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rk.LAUNCHES = rk.PACK_LAUNCHES = 0
+    rnd, trail = 0, []
+
+    def rounds(st, count):
+        nonlocal rnd
+        for _ in range(count):
+            st, mets = step(st, rnd)
+            trail.append((mets["mail_sent"], mets["mail_dropped"]))
+            rnd += 1
+        return st
+
+    st = rounds(st, 4)                      # warm-up
+    st = rounds(st, 40)                     # settle
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = rounds(st, 20)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    k1_launches, k2_launches = rk.LAUNCHES, rk.PACK_LAUNCHES
+    rps = 20 / statistics.median(times)
+    sent = [int(a) for a, _ in trail]
+    dropped = [int(b) for _, b in trail]
+    print(f"[12] sharded main path N=2^20 D={SHARDS}, churn 0.01, flat "
+          f"round: median {rps:.3f} sharded dense rounds/s over rounds "
+          f"44-103 (host clock, {card}); windows "
+          f"{[round(x, 3) for x in times]} s; K2 launches {k2_launches}, "
+          f"K1 launches {k1_launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    print(f"[12] mail sent per round {sent}")
+    print(f"[12] mail dropped per round {dropped}")
+    quiet = dd.make_sharded_dense_round(cfg, mesh)
+    t0 = time.perf_counter()
+    st = dd.run_sharded(quiet, st, 40)
+    h = {key: float(v) for key, v in hd.connectivity(dd.to_dense(st)).items()}
+    has_active = float((st.active >= 0).any(1).float().mean())
+    print(f"[12] after 40 churn-free rounds ({time.perf_counter() - t0:.1f} "
+          f"s): {json.dumps(h)}; non-empty active view {has_active:.6f}; "
+          f"dropped per shard {st.dropped.tolist()}")
+    assert h["live"] == N_SHARDED, h
+    assert has_active >= 0.99, has_active
+    assert h["isolated"] == 0, h
+    assert h["symmetry"] >= 0.98, h
+    assert h["reached"] / h["live"] >= 0.999, h
+    assert k1_launches > 0 and k2_launches > 0, \
+        "the sharded main path did not launch K1 and K2"
+    t_phase = phase_done(12, t_phase)
+
+    # ---- 13. where a sharded round's time goes ---------------------------
+    rnd = int(st.rnd)
+    churned = step
+    no_merge = dd.make_sharded_dense_round(cfg, mesh, churn=0.01,
+                                           skip=frozenset({"merge"}))
+    reps = 5
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        total, _ = event_ms(lambda: [fn() for _ in range(reps)])
+        return total / reps
+
+    mail = st.mail.view(SHARDS, m_loc, -1)
+    valid = mail[..., 0] != 0
+    shard = torch.where(valid, mail[..., 1].clamp(0, N_SHARDED - 1) // n_loc,
+                        SHARDS).to(torch.int32)
+    recv, _ = sx.bucket_exchange(mail, n_loc, SHARDS, b_cap, mesh)
+    base = torch.arange(SHARDS, dtype=torch.int32, device=dev)[:, None]
+    dstl = (recv[..., 1] - base * n_loc).clamp(0, n_loc - 1)
+    gdst = (dstl + base * n_loc).long()
+    keep = (recv[..., 0] != 0) & st.alive[gdst] & (
+        st.partition[gdst] == recv[..., 4])
+    rkind = recv[..., 3]
+    # K1 alone at the route shape: shard 0's received rows, keyed as
+    # route_select keys them
+    n_rt = dd.HV_KINDS * n_loc
+    rt = torch.where(keep[0] & (rkind[0] >= 0) & (rkind[0] < dd.HV_KINDS),
+                     rkind[0] * n_loc + dstl[0], -1).to(torch.int32)
+    rt_keys = rk.packed_keys(rt, 12345, n_rt)
+    ms = {
+        "round": timed(lambda: churned(st, rnd)),
+        "round_no_merge": timed(lambda: no_merge(st, rnd)),
+        "exchange": timed(lambda: sx.bucket_exchange(mail, n_loc, SHARDS,
+                                                     b_cap, mesh)),
+        "route": timed(lambda: sx.route_select(rkind, dstl, keep,
+                                               dd.HV_KINDS, n_loc, 6, 12345)),
+        "k2": timed(lambda: rk.bucket_pack_cuda(shard, SHARDS, b_cap)),
+        "k2_plain": timed(lambda: rk.bucket_pack_plain(shard, SHARDS,
+                                                       b_cap)),
+        "k2_sort": timed(lambda: torch.sort(shard, dim=-1, stable=True)),
+        "k1": timed(lambda: rk.reverse_select_cuda(rt, 12345, n_rt, 6)),
+        "k1_plain": timed(lambda: rk.reverse_select_plain(rt, 12345, n_rt,
+                                                          6)),
+        "k1_sort": timed(lambda: torch.sort(rt_keys, stable=True)),
+    }
+    ms["merge"] = ms["round"] - ms["round_no_merge"]
+    ms["body"] = ms["round"] - ms["exchange"] - ms["route"] - ms["merge"]
+    want = rk.bucket_pack_plain(shard, SHARDS, b_cap)
+    got = rk.bucket_pack_cuda(shard, SHARDS, b_cap)
+    err = max(int((w.long() - g.long()).abs().max()) for w, g in
+              zip(want, got))
+    assert err == 0, "K2 disagrees with its plain version on the outbox"
+    k2_err = max(k2_err, err)
+    k2_bound = bound_ms(SHARDS * m_loc * 12 + SHARDS * 4,
+                        bucket_ops(SHARDS * m_loc, SHARDS), int_rate)
+    print(f"[13] one sharded round at N=2^20 (CUDA events, {reps} calls "
+          f"each): {ms['round']:.2f} ms = exchange {ms['exchange']:.2f} "
+          f"(K2 {ms['k2']:.3f}, scatter + transpose "
+          f"{ms['exchange'] - ms['k2']:.2f}) + route ({SHARDS} K1 calls) "
+          f"{ms['route']:.2f} + merge {ms['merge']:.2f} + body "
+          f"{ms['body']:.2f}")
+    print(f"[13] K2 on the main path's outbox [{SHARDS}, {m_loc}], d="
+          f"{SHARDS} b={b_cap}: {ms['k2']:.4f} ms a call; plain "
+          f"{ms['k2_plain']:.4f} ms; torch.sort(stable) of the same keys "
+          f"{ms['k2_sort']:.4f} ms; bound {k2_bound[0] * 1e3:.2f} us by "
+          f"{k2_bound[1]}; max_abs_err {err}")
+    k1_bound = bound_ms(m_rt * 4 + n_rt * 6 * 4, route_ops(m_rt, 6), int_rate)
+    print(f"[13] K1 at the route shape m={m_rt} n={n_rt} c=6 (shard 0's "
+          f"mailbox): {ms['k1']:.4f} ms a call; plain {ms['k1_plain']:.4f} "
+          f"ms; torch.sort(stable) of the same keys {ms['k1_sort']:.4f} ms; "
+          f"bound {k1_bound[0] * 1e3:.2f} us by {k1_bound[1]}; "
+          f"{SHARDS} calls a round = {SHARDS * ms['k1']:.2f} ms")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    churned(st, rnd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    churned(st, rnd)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        churned(st, rnd)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    if busy_ms > 0:
+        print(f"[13] one round: {plain_wall_ms:.1f} ms wall without the "
+              f"profiler; card busy {busy_ms:.1f} ms in a profiled round, "
+              f"{sum(e.count for e in on_card)} kernels; idle "
+              f"{1 - busy_ms / plain_wall_ms:.3f} against the plain wall")
+        top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
+        for e in top:
+            print(f"    {e.self_device_time_total / 1e3:8.2f} ms "
+                  f"x{e.count:<5d} {e.key[:90]}")
+    else:
+        print("[13] profiler showed no device time: idle share not measured")
+    phase_done(13, t_phase)
+
+    return {"name": "bucket_pack", "route": "cuda",
+            "source": "partisan_tpu_torch/csrc/bucket_pack.cu",
+            "replaces": "partisan_tpu/ops/route_kernel.py:216",
+            "launches": k2_launches, "max_abs_err": k2_err,
+            "ms": ms["k2"], "plain_ms": ms["k2_plain"],
+            "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+            "library_ms": ms["k2_sort"], "shards": SHARDS, "m": m_loc,
+            "d": SHARDS, "b": b_cap}, {
+        "sharded_launches": k1_launches, "sharded_ms": ms["k1"],
+        "sharded_plain_ms": ms["k1_plain"], "sharded_bound_ms": k1_bound[0],
+        "sharded_bound_by": k1_bound[1], "sharded_library_ms": ms["k1_sort"],
+        "sharded_m": m_rt, "sharded_n": n_rt, "sharded_c": 6}
+
+
+def flat_leaves(state) -> dict:
+    """{name: numpy array} of a sharded state from ``state_to_numpy``."""
+    out = {}
+    for f in type(state)._fields:
+        x = getattr(state, f)
+        if f == "hv":
+            out.update({f"hv.{k}": v for k, v in flat_leaves(x).items()})
+        else:
+            out[f] = x
+    return out
+
+
 def max_abs_err(a, b) -> int:
     """Largest difference of two int32 word tensors read as uint32."""
     mask = 0xFFFFFFFF
@@ -531,6 +842,8 @@ def main() -> int:
           f"{k4_ms * 1e3:.2f})")
 
     route = dense_phases(dev, card, int_rate)
+    pack, route_sharded = sharded_phases(dev, card, int_rate)
+    route.update(route_sharded)
 
     # ---- 9. the kernels line, the card, the result ---------------------
     kernels = [
@@ -549,6 +862,7 @@ def main() -> int:
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": None, "n": N_HBM, "rounds": 1},
         route,
+        pack,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,7 +4,7 @@ Importing ``partisan_tpu.config`` runs ``partisan_tpu/__init__``, which
 imports JAX and flax, so the port keeps this copy; field for field it
 equals the reference's (``tests/test_torch_config.py`` pins names,
 defaults and the env/mapping tiers).  ``use_pallas_route`` is kept so the
-two dataclasses match, but selects nothing here: see its comment.
+two dataclasses match, but ``True`` raises: see its comment.
 
 Mirrors the reference's config system (``src/partisan_config.erl:37-151`` and
 ``include/partisan.hrl``) as a frozen dataclass: reads are attribute lookups on
@@ -178,12 +178,12 @@ class Config:
     #   notes).  None = always dense (bit-identical results either way;
     #   handlers see the same per-node PRNG keys on both paths).
     use_pallas_route: bool = False
-    # ^ in the reference, routes the dense round's sorts through its
-    #   Pallas kernels.  In the port it selects NOTHING and is kept only
-    #   so the dataclasses match: ops/shard_exchange.reverse_select
-    #   always takes the K1 CUDA kernel (csrc/route_select.cu) for a
-    #   CUDA tensor and always takes its plain PyTorch version for a CPU
-    #   tensor.  The two are bit-identical, as the reference's twins are.
+    # ^ in the reference, routes the dense rounds' sorts through its
+    #   Pallas kernels.  The port always does: ops/route_kernel takes the
+    #   K1/K2 CUDA kernels for a CUDA tensor and their plain PyTorch
+    #   versions for a CPU tensor (bit-identical, as the reference's
+    #   twins are).  The field stays so the dataclasses match, and True
+    #   is refused (__post_init__), since it would select nothing.
 
     # --- workload / SLO plane (workload/, Dean & Barroso tail-at-scale) -----
     slo_deadline_rounds: int = 16
@@ -208,6 +208,13 @@ class Config:
 
     # --- determinism --------------------------------------------------------
     seed: int = 1                      # per-node keys derive from this (support :163-166)
+
+    def __post_init__(self) -> None:
+        if self.use_pallas_route:
+            raise ValueError(
+                "use_pallas_route=True selects nothing in the port: a CUDA "
+                "tensor always takes the routing kernels (K1, K2) and a "
+                "CPU tensor their plain versions; leave it False")
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -124,11 +124,18 @@ def _node_slot_ctr(n: int, w: int, device) -> torch.Tensor:
     return (ids[:, None] << 8) | slots[None, :]
 
 
-def bulk_passive_merge(active, passive, cands, ids, key) -> torch.Tensor:
+def bulk_passive_merge(active, passive, cands, ids, key, rows=None
+                       ) -> torch.Tensor:
     """Fold [N, K] candidate peers into the [N, P] passive views in one
     step (add_to_passive_view: not me, not in either view, random evict
     when full): random priority over the deduplicated union, keep the P
-    highest.  ``key`` is one key, best held on the CPU."""
+    highest.  ``key`` is one key, best held on the CPU.
+
+    The priorities hash ``(row << 8) | slot``.  ``rows`` ([N] int) gives
+    each row's counter; None counts the rows 0..N-1.  The reference's
+    sharded round calls the merge inside ``shard_map``, where it counts
+    each shard's rows from 0: the sharded round here passes
+    ``gids % n_loc``."""
     n = active.shape[0]
     cat = torch.cat([passive, cands], dim=1)                      # [N, W]
     ok = (cat >= 0) & (cat != ids[:, None])
@@ -141,7 +148,12 @@ def bulk_passive_merge(active, passive, cands, ids, key) -> torch.Tensor:
     w = sv.shape[1]
     assert w <= 256, "merge priority counters pack the slot in 8 bits"
     s32 = int(prng.bits(key))
-    pri = lshr(mix32(wrap_i32(_node_slot_ctr(n, w, sv.device) ^ s32)), 8)
+    if rows is None:
+        ctr = _node_slot_ctr(n, w, sv.device)
+    else:
+        slots = torch.arange(w, dtype=torch.int64, device=sv.device)
+        ctr = (rows.long()[:, None] << 8) | slots[None, :]
+    pri = lshr(mix32(wrap_i32(ctr ^ s32)), 8)
     # the reference sorts float32 -pri with invalid slots at 1.0; pri is a
     # 24-bit integer, so the integer key below orders exactly the same,
     # ties kept in input order by the stable sort

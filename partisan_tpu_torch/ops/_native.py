@@ -24,7 +24,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("rumor_fused.cu", "rumor_hbm.cu", "route_select.cu")
+SOURCES = ("rumor_fused.cu", "rumor_hbm.cu", "route_select.cu",
+           "bucket_pack.cu")
 HEADERS = ("rumor_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +43,8 @@ SIGNATURES = {
                       _P),
     # targets, salt, m, n, c, bits, scratch, out, stream
     "route_select_run": (_P, _U, _I, _I, _I, _I, _P, _P, _P),
+    # shard, n_sh, m, d, b, counts, bstart, tgt, order, dropped, stream
+    "bucket_pack_run": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None

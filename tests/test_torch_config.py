@@ -58,3 +58,15 @@ def test_replace_and_channel_helpers_match():
     assert got.channel_index("b") == want.channel_index("b") == 1
     with pytest.raises(TypeError):
         config.from_mapping({"no_such_field": 1}, environ={})
+
+
+def test_use_pallas_route_is_refused():
+    """The port always takes its routing kernels on the card: the
+    reference's opt-in flag would select nothing, so True raises."""
+    assert not config.Config().use_pallas_route
+    with pytest.raises(ValueError, match="use_pallas_route=True"):
+        config.Config(use_pallas_route=True)
+    with pytest.raises(ValueError, match="use_pallas_route=True"):
+        config.DEFAULT.replace(use_pallas_route=True)
+    with pytest.raises(ValueError, match="use_pallas_route=True"):
+        config.from_mapping({"use_pallas_route": True}, environ={})

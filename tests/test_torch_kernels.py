@@ -17,6 +17,7 @@ from partisan_tpu_torch.config import Config
 from partisan_tpu_torch.models import demers, hyparview_dense
 from partisan_tpu_torch.ops import (bitset, route_kernel, rumor_kernel,
                                     rumor_kernel_hbm, shard_exchange)
+from partisan_tpu_torch.parallel import dense_dataplane, mesh
 
 CELL = 4096
 
@@ -166,3 +167,62 @@ def test_dense_round_on_the_card_equals_the_cpu(cuda):
     for f in ("active", "passive", "alive", "rnd", "partition"):
         np.testing.assert_array_equal(getattr(out["cpu"], f),
                                       getattr(out["cuda"], f), err_msg=f)
+
+
+def shard_ids(shape, d, seed, invalid=1 / 3, device="cpu"):
+    """int32 shard ids in [0, d], about ``invalid`` of them d."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, d, shape)
+    s = np.where(rng.random(shape) < invalid, d, s).astype(np.int32)
+    return torch.from_numpy(s).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,d,b,invalid", [
+    ((8, 2359296), 8, 589824, 1 / 3), ((8, 100003), 8, 2000, 0.2),
+    ((1,), 1, 1, 0.0), ((3, 1), 8, 16, 0.5), ((2, 5000), 8, 16, 1.0),
+    ((4097,), 1, 100, 0.3), ((4, 777), 255, 3, 0.1), ((2, 256), 2, 300, 0.0)])
+def test_bucket_pack_kernel_matches_plain(cuda, shape, d, b, invalid):
+    s = shard_ids(shape, d, sum(shape) + d, invalid, cuda)
+    want = route_kernel.bucket_pack_plain(s, d, b)
+    before = route_kernel.PACK_LAUNCHES
+    got = route_kernel.bucket_pack_cuda(s, d, b)
+    torch.cuda.synchronize()
+    assert route_kernel.PACK_LAUNCHES == before + 1
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,cfg_kw,kw", [
+    ("hyparview", dict(shuffle_interval=4, random_promotion_interval=2),
+     dict(churn=0.02)),
+    ("plumtree", dict(shuffle_interval=4, random_promotion_interval=2),
+     dict(model="plumtree")),
+    ("scamp", {}, dict(model="scamp", churn=0.01))])
+def test_sharded_round_on_the_card_equals_the_cpu(cuda, model, cfg_kw, kw):
+    """The sharded round (K2, D K1 calls and every torch op) on the card
+    against the same round on the CPU, which the parity tests hold to the
+    reference: every leaf bit-equal after 12 rounds at N=4096, D=8."""
+    cfg = Config(n_nodes=4096, **cfg_kw)
+    init = {"hyparview": dense_dataplane.sharded_dense_init,
+            "plumtree": dense_dataplane.sharded_pt_init,
+            "scamp": dense_dataplane.sharded_scamp_init}[model]
+    out = {}
+    for dev in ("cpu", cuda):
+        before = (route_kernel.LAUNCHES, route_kernel.PACK_LAUNCHES)
+        step = dense_dataplane.make_sharded_dense_round(
+            cfg, mesh.make_mesh(8, dev), **kw)
+        st = dense_dataplane.run_sharded(step, init(cfg, 8, device=dev), 12)
+        out[str(dev)] = dense_dataplane.state_to_numpy(st)
+        launched = (route_kernel.LAUNCHES - before[0],
+                    route_kernel.PACK_LAUNCHES - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (12 * 8, 12))
+    flat = [(f, getattr(out["cpu"], f), getattr(out["cuda"], f))
+            for f in type(out["cpu"])._fields]
+    for f, a, b in flat:
+        if f == "hv":
+            flat += [(f"hv.{g}", getattr(a, g), getattr(b, g))
+                     for g in type(a)._fields]
+            continue
+        np.testing.assert_array_equal(a, b, err_msg=f)

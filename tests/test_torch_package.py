@@ -39,7 +39,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, partisan_tpu_torch.models.demers, "
             "partisan_tpu_torch.ops.rumor_kernel, "
             "partisan_tpu_torch.ops.rumor_kernel_hbm, "
-            "partisan_tpu_torch.models.hyparview_dense; "
+            "partisan_tpu_torch.models.hyparview_dense, "
+            "partisan_tpu_torch.parallel.dense_dataplane; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -103,3 +104,22 @@ def test_kernel_wrappers_refuse_a_misshapen_table(kernel, bad):
     with pytest.raises(ValueError, match="table: want int32"):
         run(w, table, 4096, 1, 0.0)
     assert (rumor_kernel.LAUNCHES, rumor_kernel_hbm.LAUNCHES) == before
+
+
+def test_sharded_entry_points_raise_without_a_card(monkeypatch):
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.parallel import dense_dataplane as dd
+    from partisan_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(n_nodes=64)
+    for fn in (lambda: mesh.make_mesh(8),
+               lambda: dd.sharded_dense_init(cfg, 8),
+               lambda: dd.sharded_pt_init(cfg, 8),
+               lambda: dd.sharded_scamp_init(cfg, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
+    s = dd.sharded_dense_init(cfg, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dd.state_from_numpy(dd.state_to_numpy(s))
+    step = dd.make_sharded_dense_round(cfg, mesh.make_mesh(8, "cpu"))
+    assert dd.run_sharded(step, s, 2).active.device.type == "cpu"
