@@ -9,9 +9,13 @@ It builds the CUDA kernels from ``partisan_tpu_torch/csrc/`` (nvcc, into
 ``build/``), then:
 
 0. prints the card's name and power limit and the build time;
-1. K3 (rumor_fused.cu) against its plain version at N=2^20, fanout 2,
-   stop_k 1, churn 0.01, 64 rounds from rumor_init(n, 5), and on a random
-   world with stop_k 3: bit-equality of infected and hot;
+1. K3 (rumor_fused.cu) against its plain version, bit-equality of
+   infected and hot: at N=2^20, fanout 2, churn 0.01, 64 rounds from
+   rumor_init(n, 5) with stop_k 1 and on a random world with stop_k 3;
+   N=4096; 1 and 2 rounds; fanout 1, 3 and 5; a world with no hot node;
+   a dying world (fanout 1, churn 0.6; the plain run's restarts printed);
+   patient zero in the first and last word with the call ending on a
+   restart; and N=2^24, whose words outnumber the grid's threads;
 2. K4 (rumor_hbm.cu) against its plain version at N=2^24, block_rows 1024:
    churn 0 for 8 rounds with both all_alive settings (bit-equality), and
    churn 0.01 for 8 rounds (bit-equality, and infected fractions within
@@ -19,10 +23,14 @@ It builds the CUDA kernels from ``partisan_tpu_torch/csrc/`` (nvcc, into
 3. the headline path: rumor_run(rumor_init(2^20, 0), 20000, 2^20, 2, 1,
    0.01, "fused"), one warm-up and three timed runs on fresh worlds; the
    infected fraction must lie in (0.55, 0.75) and K3 must have launched;
+   then K3 alone on one call's inputs (ms a launch, us a round, its ratio
+   to the bound), its round split into the barrier alone (a probe on the
+   same grid), the loads and bit operations (churn 0) and the churn
+   arithmetic left exposed;
 4. the big-N path: rumor_run_hbm(..., block_rows=1024, all_alive=True) at
    N=2^24, 3000 rounds, churn 0.01, three timed runs on fresh worlds; same
    window, and K4 must have launched; then the entry's host draws and K4
-   alone on the last call's inputs, and both kernels without churn;
+   alone on the last call's inputs, with and without churn;
 5. K1 (route_select.cu) against its plain version: bit-equality of the
    [n, c] output at (m = n = 2^20, c 2), (1000003, 2^18, 4), (2^20, 7, 3),
    (1, 1, 1) and all -1 targets;
@@ -89,6 +97,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT32_OPS_PER_SM_CLOCK = 64
 
 N_FUSED = 1 << 20
+DYING = 0.6   # churn at fanout 1 that kills the rumor every few rounds
 N_HBM = 1 << 24
 ENDEMIC = (0.55, 0.75)   # tests/test_rumor_kernel.py:52-55
 N_DENSE = 1 << 20        # scripts/perf_suite.py:225-246, hv_dense_1048576
@@ -670,6 +679,52 @@ def random_packed(n: int, seed: int, dead: bool, device):
                                             device=device))
 
 
+def k3_cases(dev):
+    """Phase 1's K3 cases: (label, world, table, stop_k, churn)."""
+    import torch
+    from partisan_tpu_torch.models import demers
+    from partisan_tpu_torch.ops import rumor_kernel as rk
+    n = N_FUSED
+
+    def table(w, rounds, fanout, n=n):
+        return rk.rumor_table(int(w.rnd), rounds, n, fanout)
+
+    init = demers.rumor_pack(demers.rumor_init(n, 5, device=dev))
+    rand = random_packed(n, 1, True, dev)
+    cold = rand._replace(hot=torch.zeros_like(rand.hot))
+    yield "rumor_init(n, 5), stop_k 1", init, table(init, 64, 2), 1, 0.01
+    yield "random world, stop_k 3", rand, table(rand, 64, 2), 3, 0.01
+    small = random_packed(4096, 3, True, dev)
+    yield ("N=4096 (one row: 128 words, fewer than a block's threads), 61 "
+           "rounds, stop_k 3", small, table(small, 61, 2, 4096), 3, 0.01)
+    for rounds in (1, 2):
+        yield (f"{rounds} round(s), stop_k 3", rand, table(rand, rounds, 2),
+               3, 0.01)
+    for fanout in (1, 3, 5):
+        yield f"fanout {fanout}", rand, table(rand, 64, fanout), 1, 0.01
+    yield "no hot node (round 0 restarts)", cold, table(cold, 64, 2), 1, 0.01
+    yield (f"dying world: fanout 1, churn {DYING}, 200 rounds", rand,
+           table(rand, 200, 1), 1, DYING)
+    # patient zero in word 0 on even rounds, in the last word on odd ones;
+    # the call ends on its last restart, which the epilogue applies
+    ends = table(rand, 200, 1)
+    ends[0::2, -1] = torch.arange(0, 200, 2) % 32
+    ends[1::2, -1] = n - 1 - torch.arange(1, 200, 2) % 32
+    died = []
+    rk.rumor_run_fused_plain(rand, ends, n, 1, DYING, died)
+    assert {0, 1} <= {d % 2 for d in died}, died
+    yield (f"patient zero in the first and last word, ends on a restart "
+           f"(round {died[-1]})", rand, ends[:died[-1] + 1], 1, DYING)
+    big = random_packed(N_HBM, 4, True, dev)
+    yield ("N=2^24 (more words than the grid's threads), stop_k 3", big,
+           table(big, 8, 2, N_HBM), 3, 0.01)
+
+
+def k3_times(fn, reps: int = 3) -> list[float]:
+    """``reps`` CUDA-event times (ms) of fn, one call each."""
+    return [event_ms(fn)[0] for _ in range(reps)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -703,21 +758,21 @@ def main() -> int:
         return bitset.count(words) / n
 
     # ---- 1. K3 against its plain version -------------------------------
-    n = N_FUSED
     k3_err = 0
-    cases = [("rumor_init(n, 5), stop_k 1", demers.rumor_pack(
-        demers.rumor_init(n, 5, device=dev)), 1),
-        ("random world, stop_k 3", random_packed(n, 1, True, dev), 3)]
-    for label, w, stop_k in cases:
-        table = rumor_kernel.rumor_table(int(w.rnd), 64, n, 2)
-        want = rumor_kernel.rumor_run_fused_plain(w, table, n, stop_k, 0.01)
-        got = rumor_kernel.rumor_run_fused_cuda(w, table, n, stop_k, 0.01)
+    for label, w, table, stop_k, churn in k3_cases(dev):
+        n = w.infected.shape[0] * 32
+        died = []
+        want = rumor_kernel.rumor_run_fused_plain(w, table, n, stop_k, churn,
+                                                  died)
+        got = rumor_kernel.rumor_run_fused_cuda(w, table, n, stop_k, churn)
         torch.cuda.synchronize()
         err = max(max_abs_err(want.infected, got.infected),
                   max_abs_err(want.hot, got.hot))
         k3_err = max(k3_err, err)
-        print(f"[1] K3 vs plain, N=2^20, 64 rounds, churn 0.01, {label}: "
-              f"max_abs_err {err}, infected {frac(got.infected, n):.4f}")
+        print(f"[1] K3 vs plain, N={n}, {table.shape[0]} rounds, churn "
+              f"{churn}, {label}: max_abs_err {err}, infected "
+              f"{frac(got.infected, n):.4f}, restarts in the plain run "
+              f"{len(died)}")
         assert err == 0, "K3 disagrees with its plain version"
 
     # ---- 2. K4 against its plain version -------------------------------
@@ -767,13 +822,19 @@ def main() -> int:
           f"K3 launches {k3_launches}")
     assert all(ENDEMIC[0] < f < ENDEMIC[1] for f in fracs), fracs
     assert k3_launches > 0, "the headline path did not launch K3"
-    # K3 alone and its plain version on one headline call's inputs
+    # K3 alone, its plain version and its parts on one headline call's
+    # inputs (CUDA events, three launches each, median)
     w = demers.rumor_pack(demers.rumor_init(n, 0, device=dev))
     t0 = time.perf_counter()
     table = rumor_kernel.rumor_table(0, rounds, n, 2)
     draw_ms = (time.perf_counter() - t0) * 1e3
-    k3_ms, _ = event_ms(lambda: rumor_kernel.rumor_run_fused_cuda(
-        w, table, n, 1, 0.01))
+
+    def k3(churn):
+        return lambda: rumor_kernel.rumor_run_fused_cuda(w, table, n, 1,
+                                                         churn)
+
+    k3_all = k3_times(k3(0.01))
+    k3_ms = statistics.median(k3_all)
     k3_plain_ms, _ = event_ms(lambda: rumor_kernel.rumor_run_fused_plain(
         w, table, n, 1, 0.01))
     W = n // 32
@@ -781,11 +842,24 @@ def main() -> int:
                         rounds * W * round_ops_per_word(2, 1, 0.01, False),
                         int_rate)
     call_ms = statistics.median(times) * 1e3
+    us = 1e3 / rounds
+    launches = [round(x, 3) for x in k3_all]
     print(f"[3] K3 one launch of {rounds} rounds: {k3_ms:.3f} ms "
-          f"({k3_ms / rounds * 1e3:.3f} us/round); plain {k3_plain_ms:.1f} "
-          f"ms; bound {k3_bound[0]:.4f} ms by {k3_bound[1]}; host draws "
-          f"of the table {draw_ms:.1f} ms; card idle "
-          f"{1.0 - k3_ms / call_ms:.3f} of a {call_ms:.1f} ms call")
+          f"({k3_ms * us:.4f} us/round; launches {launches} ms); "
+          f"{k3_ms / k3_bound[0]:.2f}x its bound {k3_bound[0]:.4f} ms by "
+          f"{k3_bound[1]}; plain {k3_plain_ms:.1f} ms; host draws of the "
+          f"table {draw_ms:.1f} ms; card idle {1.0 - k3_ms / call_ms:.3f} "
+          f"of a {call_ms:.1f} ms call ({card})")
+    calm = statistics.median(k3_times(k3(0.0)))
+    barrier = statistics.median(k3_times(
+        lambda: rumor_kernel.barrier_probe_cuda(rounds, n, 2)))
+    print(f"[3] without churn: K3 {calm * us:.4f} us/round (with churn "
+          f"{k3_ms * us:.4f}); the barrier alone {barrier * us:.4f} "
+          f"us/round ({card})")
+    print(f"[3] K3 a round: {k3_ms * us:.4f} us = the barrier alone "
+          f"{barrier * us:.4f} + loads and bit operations "
+          f"{(calm - barrier) * us:.4f} + churn arithmetic left exposed "
+          f"{(k3_ms - calm) * us:.4f} ({card})")
 
     # ---- 4. the big-N path: K4 through its entry point -----------------
     n, rounds = N_HBM, 3000
@@ -827,19 +901,13 @@ def main() -> int:
           f"{draw_ms:.1f} ms a call; card idle {idle:.3f} of a call's "
           f"span")
 
-    # ---- where the kernels' time goes: the same launches without churn
-    # (no Bernoulli mask), after the counts above were read
-    w = demers.rumor_pack(demers.rumor_init(N_FUSED, 0, device=dev))
-    t3 = rumor_kernel.rumor_table(0, 20000, N_FUSED, 2)
-    k3_calm, _ = event_ms(lambda: rumor_kernel.rumor_run_fused_cuda(
-        w, t3, N_FUSED, 1, 0.0))
+    # ---- where K4's time goes: the same launches without churn (no
+    # Bernoulli mask), after the counts above were read
     w = demers.rumor_pack(demers.rumor_init(N_HBM, 0, device=dev))
     k4_calm, _ = event_ms(lambda: hbm.rumor_run_hbm_cuda(
         w, table, N_HBM, 1, 0.0, True))
-    print(f"[4] without churn: K3 {k3_calm / 20000 * 1e3:.3f} us/round "
-          f"(with churn {k3_ms / 20000 * 1e3:.3f}); K4 "
-          f"{k4_calm / rounds * 1e3:.2f} us/launch (with churn "
-          f"{k4_ms * 1e3:.2f})")
+    print(f"[4] without churn: K4 {k4_calm / rounds * 1e3:.2f} us/launch "
+          f"(with churn {k4_ms * 1e3:.2f})")
 
     route = dense_phases(dev, card, int_rate)
     pack, route_sharded = sharded_phases(dev, card, int_rate)

@@ -187,7 +187,9 @@ def _rumor_steps(w: RumorWorld, n_rounds: int, n: int, fanout: int,
 def packed_round(inf, hot, alive, n: int, shifts, coin_salt: int,
                  churn_salt: int, pz: int, stop_k: int, churn: float):
     """One round of ``make_rumor_step_packed`` on int32 words, given the
-    round's drawn scalars; returns (infected', hot')."""
+    round's drawn scalars; returns (infected', hot', dead): ``dead`` a
+    bool tensor, true when no hot & alive node was left, so patient zero
+    restarted the rumor."""
     W = n // WORD
     send = hot & alive
     hit = torch.zeros_like(send)
@@ -211,21 +213,24 @@ def packed_round(inf, hot, alive, n: int, shifts, coin_salt: int,
     bit = torch.where(dead, bitset.i32(1 << (pz % WORD)), 0)
     new_inf[pz // WORD] |= bit
     new_hot[pz // WORD] |= bit
-    return new_inf, new_hot
+    return new_inf, new_hot, dead
 
 
 def rumor_run_packed(w: RumorWorldPacked, table: torch.Tensor, n: int,
-                     stop_k: int = 1, churn: float = 0.0
-                     ) -> RumorWorldPacked:
+                     stop_k: int = 1, churn: float = 0.0,
+                     died: list[int] | None = None) -> RumorWorldPacked:
     """The packed round (``make_rumor_step_packed``) for each row of a
-    drawn ``rumor_table``."""
+    drawn ``rumor_table``.  ``died``, when given, gains the index of each
+    round in which the rumor died and restarted (one host sync a round)."""
     assert n % WORD == 0, "packed rumor wants n % 32 == 0"
     fanout = table.shape[1] - 3
     inf, hot = w.infected, w.hot
-    for row in table.tolist():
-        inf, hot = packed_round(inf, hot, w.alive, n, row[:fanout],
-                                row[fanout], row[fanout + 1], row[fanout + 2],
-                                stop_k, churn)
+    for i, row in enumerate(table.tolist()):
+        inf, hot, dead = packed_round(inf, hot, w.alive, n, row[:fanout],
+                                      row[fanout], row[fanout + 1],
+                                      row[fanout + 2], stop_k, churn)
+        if died is not None and bool(dead):
+            died.append(i)
     return RumorWorldPacked(inf, hot, w.alive, w.rnd + table.shape[0])
 
 

@@ -35,8 +35,10 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 SIGNATURES = {
     # table, n_rounds, fanout, n, coin D/ones, churn D/ones, alive, inf,
-    # hot, flag, stream
+    # hot, counts, stream
     "rumor_fused_run": (_P, _I, _I, _I, _I, _U, _I, _U, _P, _P, _P, _P, _P),
+    # n_rounds, n, fanout, counts, stream
+    "rumor_barrier_run": (_I, _I, _I, _P, _P),
     # table, n_rounds, fanout, rows, all_alive, coin D/ones, churn D/ones,
     # alive, inf, hot, counts, stream
     "rumor_hbm_run": (_P, _I, _I, _I, _I, _I, _U, _I, _U, _P, _P, _P, _P,

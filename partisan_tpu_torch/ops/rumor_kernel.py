@@ -8,11 +8,13 @@ shifts, coin and churn salts, patient zero), in one vectorised host pass,
 and computes the packed Bernoulli masks in its body.  So it is bit-exact
 with ``rumor_run(..., variant="packed")`` at every stop_k and churn.
 
-The kernel is ``csrc/rumor_fused.cu`` (a persistent cooperative grid, one
-grid-wide barrier pair per round).  ``rumor_run_fused`` launches it for a
-CUDA tensor and runs the plain version (the packed round applied to the
-same table, ``rumor_run_fused_plain``) for a CPU tensor; there is no
-fallback from one to the other.
+The kernel is ``csrc/rumor_fused.cu``: a persistent cooperative grid with
+one split-phase grid barrier a round, whose barrier word also carries the
+"any sender left" count, so a restart is applied when the next round loads
+patient zero's word.  ``rumor_run_fused`` launches it for a CUDA tensor and
+runs the plain version (the packed round applied to the same table,
+``rumor_run_fused_plain``) for a CPU tensor; there is no fallback from one
+to the other.
 """
 
 from __future__ import annotations
@@ -72,7 +74,9 @@ def check_table(table: torch.Tensor, per_fanout: int) -> int:
 def rumor_run_fused_cuda(packed: RumorWorldPacked, table: torch.Tensor,
                          n: int, stop_k: int, churn: float
                          ) -> RumorWorldPacked:
-    """One launch of ``csrc/rumor_fused.cu`` over the whole table."""
+    """One launch of ``csrc/rumor_fused.cu`` over the whole table: a
+    thread a word in blocks of 256, capped at what the card holds at once
+    (128 blocks at n = 2^20)."""
     global LAUNCHES
     fanout = check_table(table, 1)
     n_rounds = table.shape[0]
@@ -86,17 +90,30 @@ def rumor_run_fused_cuda(packed: RumorWorldPacked, table: torch.Tensor,
     hot = torch.empty((2, W), dtype=torch.int32, device=dev)
     inf[0].copy_(packed.infected)
     hot[0].copy_(packed.hot)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    counts = torch.zeros(n_rounds, dtype=torch.int32, device=dev)
     lib = _native.lib()
     err = lib.rumor_fused_run(
         table.data_ptr(), n_rounds, fanout, n, *mask_args(stop_k, churn),
         packed.alive.data_ptr(), inf.data_ptr(), hot.data_ptr(),
-        flag.data_ptr(), _native.stream_handle(inf))
+        counts.data_ptr(), _native.stream_handle(inf))
     _native.check(err, "rumor_fused_run")
     LAUNCHES += 1
     slot = n_rounds % 2
     return RumorWorldPacked(inf[slot], hot[slot], packed.alive,
                             packed.rnd + n_rounds)
+
+
+def barrier_probe_cuda(n_rounds: int, n: int, fanout: int = 2,
+                       device="cuda") -> None:
+    """K3's grid barrier alone: ``n_rounds`` arrive-and-wait rounds on the
+    grid ``rumor_run_fused_cuda`` takes for (n, fanout).  A timing probe
+    for the share of a round that is the barrier; it computes nothing and
+    counts no launch."""
+    counts = torch.zeros(n_rounds, dtype=torch.int32, device=device)
+    err = _native.lib().rumor_barrier_run(n_rounds, n, fanout,
+                                          counts.data_ptr(),
+                                          _native.stream_handle(counts))
+    _native.check(err, "rumor_barrier_run")
 
 
 def rumor_run_fused(packed: RumorWorldPacked, n_rounds: int, n: int,

@@ -80,19 +80,70 @@ def test_hbm_plain_churn_reaches_the_endemic_window():
     assert 0.55 < bitset.count(out.infected) / n < 0.75
 
 
+DYING = 0.6   # churn at fanout 1 that kills the rumor every few rounds
+
+
+def fused_worlds(world, n, rounds, fanout, device):
+    """(world, table) pairs for K3.  "random": ~20% infected, half of them
+    hot or none hot (the first round restarts).  "dying": churn 0.6 at
+    fanout 1 kills the rumor every few rounds.  "ends": the same world with
+    patient zero in word 0 on even rounds and in the last word on odd ones,
+    and the call cut after its last restart, so the final round restarts."""
+    if world == "random":
+        for seed, hot_frac in ((1, 0.5), (2, 0.0)):
+            w = packed_world(n, seed, hot_frac, device=device)
+            yield w, rumor_kernel.rumor_table(int(w.rnd), rounds, n, fanout)
+        return
+    w = packed_world(n, 3, 0.5, device=device)
+    table = rumor_kernel.rumor_table(int(w.rnd), rounds, n, fanout)
+    if world == "ends":
+        table[0::2, -1] = torch.arange(0, rounds, 2) % 32
+        table[1::2, -1] = n - 1 - torch.arange(1, rounds, 2) % 32
+        died = []
+        rumor_kernel.rumor_run_fused_plain(w, table, n, 1, DYING, died)
+        assert {0, 1} <= {d % 2 for d in died}
+        table = table[:died[-1] + 1]
+    yield w, table
+
+
+FUSED_CASES = [  # n, rounds, fanout, stop_k, churn, world
+    *((n, r, f, k, c, "random")
+      for n, r, f in ((CELL, 1, 2), (CELL, 2, 2), (CELL, 61, 1),
+                      (CELL, 61, 2), (CELL, 61, 3), (4 * CELL, 60, 2),
+                      (4 * CELL, 61, 5))
+      for k in (1, 3) for c in (0.0, 0.01)),
+    (CELL, 200, 1, 1, DYING, "dying"), (4 * CELL, 200, 1, 3, DYING, "dying"),
+    (CELL, 200, 1, 1, DYING, "ends"), (4 * CELL, 200, 1, 1, DYING, "ends"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("churn", [0.0, 0.01])
-@pytest.mark.parametrize("stop_k", [1, 3])
-def test_fused_kernel_matches_plain(cuda, stop_k, churn):
-    n = 4 * CELL
-    for seed, hot_frac in ((1, 0.5), (2, 0.0)):
-        w = packed_world(n, seed, hot_frac, device=cuda)
-        table = rumor_kernel.rumor_table(int(w.rnd), 60, n, 2)
+@pytest.mark.parametrize("n,rounds,fanout,stop_k,churn,world", FUSED_CASES)
+def test_fused_kernel_matches_plain(cuda, n, rounds, fanout, stop_k, churn,
+                                    world):
+    for w, table in fused_worlds(world, n, rounds, fanout, cuda):
         want = rumor_kernel.rumor_run_fused_plain(w, table, n, stop_k, churn)
+        before = rumor_kernel.LAUNCHES
         got = rumor_kernel.rumor_run_fused_cuda(w, table, n, stop_k, churn)
         torch.cuda.synchronize()
+        assert rumor_kernel.LAUNCHES == before + 1
         assert torch.equal(want.infected, got.infected)
         assert torch.equal(want.hot, got.hot)
+
+
+@pytest.mark.gpu
+def test_fused_kernel_words_past_the_grid(cuda):
+    """At N=2^24 the words (2^19) outnumber the threads the card holds at
+    once, so the grid strides: the words past it take the round's tail
+    loop and compute their masks in the round."""
+    n = 1 << 24
+    w = packed_world(n, 4, 0.5, device=cuda)
+    table = rumor_kernel.rumor_table(int(w.rnd), 40, n, 2)
+    want = rumor_kernel.rumor_run_fused_plain(w, table, n, 3, 0.3)
+    got = rumor_kernel.rumor_run_fused_cuda(w, table, n, 3, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(want.infected, got.infected)
+    assert torch.equal(want.hot, got.hot)
 
 
 @pytest.mark.gpu
