@@ -16,10 +16,12 @@ It builds the CUDA kernels from ``partisan_tpu_torch/csrc/`` (nvcc, into
    a dying world (fanout 1, churn 0.6; the plain run's restarts printed);
    patient zero in the first and last word with the call ending on a
    restart; and N=2^24, whose words outnumber the grid's threads;
-2. K4 (rumor_hbm.cu) against its plain version at N=2^24, block_rows 1024:
-   churn 0 for 8 rounds with both all_alive settings (bit-equality), and
-   churn 0.01 for 8 rounds (bit-equality, and infected fractions within
-   0.02);
+2. K4 (rumor_hbm.cu) against its plain version, bit-equality of infected
+   and hot (and infected fractions within 0.02): at N=2^24, churn 0 for 8
+   rounds with both all_alive settings and churn 0.01 for 8 rounds; 1 and
+   2 rounds with stop_k 3; fanout 1 and 3; a dying world (fanout 1, churn
+   0.6, 200 rounds; the plain run's restarts printed); and N=2^26 for 8
+   rounds, whose words outnumber the grid's threads;
 3. the headline path: rumor_run(rumor_init(2^20, 0), 20000, 2^20, 2, 1,
    0.01, "fused"), one warm-up and three timed runs on fresh worlds; the
    infected fraction must lie in (0.55, 0.75) and K3 must have launched;
@@ -29,8 +31,13 @@ It builds the CUDA kernels from ``partisan_tpu_torch/csrc/`` (nvcc, into
    arithmetic left exposed;
 4. the big-N path: rumor_run_hbm(..., block_rows=1024, all_alive=True) at
    N=2^24, 3000 rounds, churn 0.01, three timed runs on fresh worlds; same
-   window, and K4 must have launched; then the entry's host draws and K4
-   alone on the last call's inputs, with and without churn;
+   window, and one K4 launch a call; then the entry's host draws and K4
+   alone on the last call's inputs (ms a launch, us a round, its ratio to
+   the bound; bit-equal to the plain version over the 3000 rounds), its
+   round split into the barrier alone (a probe on K4's grid), the loads
+   and bit operations (churn 0) and the churn arithmetic left exposed;
+   then one N=2^26 call of 1000 rounds (rounds/s, K4 us a round, bit-equal
+   to the plain version, and the window if the plain run lies in it);
 5. K1 (route_select.cu) against its plain version: bit-equality of the
    [n, c] output at (m = n = 2^20, c 2), (1000003, 2^18, 4), (2^20, 7, 3),
    (1, 1, 1) and all -1 targets;
@@ -99,6 +106,7 @@ INT32_OPS_PER_SM_CLOCK = 64
 N_FUSED = 1 << 20
 DYING = 0.6   # churn at fanout 1 that kills the rumor every few rounds
 N_HBM = 1 << 24
+N_HBM_BIG = 1 << 26
 ENDEMIC = (0.55, 0.75)   # tests/test_rumor_kernel.py:52-55
 N_DENSE = 1 << 20        # scripts/perf_suite.py:225-246, hv_dense_1048576
 N_DENSE_CHECK = 1 << 14
@@ -124,15 +132,20 @@ def int32_ops_per_s() -> float:
 
 
 def round_ops_per_word(fanout: int, stop_k: int, churn: float,
-                       all_alive: bool) -> int:
+                       all_alive: bool) -> float:
     """32-bit integer operations one word of one round needs: the rolls,
     masks and updates of the round, and the mix32 chain of each packed
-    Bernoulli mask (bitset.expansion gives its depth and set bits)."""
+    Bernoulli mask (bitset.expansion gives its depth and set bits).  A
+    mask's walk can stop once no bit of the word still ties p's prefix:
+    level d + 1 is needed with probability 1 - (1 - 2^-d)^32, so a word
+    needs the sum of those levels' costs (6.35 of 15 levels at p = 0.01),
+    the least work any walk does."""
     from partisan_tpu_torch.ops.bitset import expansion
 
     def biased(p):
         depth, ones = expansion(p)
-        return 1 + sum(2 + 8 + (4 if ones >> d & 1 else 2)
+        return 1 + sum((1.0 - (1.0 - 2.0 ** -d) ** 32)
+                       * (2 + 8 + (4 if ones >> d & 1 else 2))
                        for d in range(depth))
 
     alive_and = 0 if all_alive else 1
@@ -720,6 +733,31 @@ def k3_cases(dev):
            table(big, 8, 2, N_HBM), 3, 0.01)
 
 
+def k4_cases(dev):
+    """Phase 2's K4 cases: (label, world, table, stop_k, churn,
+    all_alive)."""
+    from partisan_tpu_torch.ops import rumor_kernel_hbm as hbm
+    n = N_HBM
+
+    def table(w, rounds, fanout, n=n):
+        return hbm.hbm_table(int(w.rnd), rounds, n, fanout)
+
+    for all_alive, churn in ((False, 0.0), (True, 0.0), (True, 0.01)):
+        w = random_packed(n, 2, not all_alive, dev)
+        yield "stop_k 1", w, table(w, 8, 2), 1, churn, all_alive
+    rand = random_packed(n, 5, True, dev)
+    for rounds in (1, 2):
+        yield "stop_k 3", rand, table(rand, rounds, 2), 3, 0.01, False
+    for fanout in (1, 3):
+        yield (f"fanout {fanout}, stop_k 3", rand, table(rand, 64, fanout), 3,
+               0.01, False)
+    yield ("dying world: fanout 1", rand, table(rand, 200, 1), 1, DYING,
+           False)
+    big = random_packed(N_HBM_BIG, 6, True, dev)
+    yield ("N=2^26 (more words than the grid's threads), stop_k 3", big,
+           table(big, 8, 2, N_HBM_BIG), 3, 0.01, False)
+
+
 def k3_times(fn, reps: int = 3) -> list[float]:
     """``reps`` CUDA-event times (ms) of fn, one call each."""
     return [event_ms(fn)[0] for _ in range(reps)]
@@ -776,27 +814,24 @@ def main() -> int:
         assert err == 0, "K3 disagrees with its plain version"
 
     # ---- 2. K4 against its plain version -------------------------------
-    n = N_HBM
     k4_err = 0
-    for all_alive, churn in ((False, 0.0), (True, 0.0), (True, 0.01)):
-        w = random_packed(n, 2, not all_alive, dev)
-        table = hbm.hbm_table(int(w.rnd), 8, n, 2)
-        want = hbm.rumor_run_hbm_plain(w, table, n, 1, churn, all_alive)
-        got = hbm.rumor_run_hbm_cuda(w, table, n, 1, churn, all_alive)
+    for label, w, table, stop_k, churn, all_alive in k4_cases(dev):
+        n = w.infected.shape[0] * 32
+        died = []
+        want = hbm.rumor_run_hbm_plain(w, table, n, stop_k, churn, all_alive,
+                                       died)
+        got = hbm.rumor_run_hbm_cuda(w, table, n, stop_k, churn, all_alive)
         torch.cuda.synchronize()
         err = max(max_abs_err(want.infected, got.infected),
                   max_abs_err(want.hot, got.hot))
         k4_err = max(k4_err, err)
         fw, fg = frac(want.infected, n), frac(got.infected, n)
-        print(f"[2] K4 vs plain, N=2^24, 8 rounds, all_alive {all_alive}, "
-              f"churn {churn}: max_abs_err {err}, infected {fg:.4f} "
-              f"(plain {fw:.4f})")
+        print(f"[2] K4 vs plain, N={n}, {table.shape[0]} rounds, churn "
+              f"{churn}, all_alive {all_alive}, {label}: max_abs_err {err}, "
+              f"infected {fg:.4f} (plain {fw:.4f}), restarts in the plain "
+              f"run {len(died)}")
         assert abs(fw - fg) <= 0.02, "K4 infected fraction off its plain"
         assert err == 0, "K4 disagrees with its plain version"
-    # the plain version's time for one big-N round (all_alive, churn 0.01)
-    plain_hbm_ms, _ = event_ms(lambda: hbm.rumor_run_hbm_plain(
-        w, table, n, 1, 0.01, True))
-    plain_hbm_ms /= table.shape[0]
 
     # ---- 3. the headline path: K3 inside rumor_run ---------------------
     n, rounds = N_FUSED, 20000
@@ -882,32 +917,77 @@ def main() -> int:
           f"clock); call spans {[round(s, 3) for s in spans]} ms (CUDA "
           f"events); infected {fracs}; K4 launches {k4_launches}")
     assert all(ENDEMIC[0] < f < ENDEMIC[1] for f in fracs), fracs
-    assert k4_launches > 0, "the big-N path did not launch K4"
+    assert k4_launches == len(worlds), \
+        "the big-N path did not make one K4 launch a call"
     # the entry's parts on the last call's inputs: the host draws, and K4
-    # alone on the table they give
+    # alone on the table they give (CUDA events, three launches each,
+    # median), held against its plain version over the whole call
     t0 = time.perf_counter()
     table = hbm.hbm_table(int(w.rnd), rounds, n, 2)
     draw_ms = (time.perf_counter() - t0) * 1e3
-    k4_total, _ = event_ms(lambda: hbm.rumor_run_hbm_cuda(
-        w, table, n, 1, 0.01, True))
-    k4_ms = k4_total / rounds
-    idle = 1.0 - k4_total / statistics.median(spans)
-    W = n // 32
-    k4_bound = bound_ms(4 * W * 4 + table.shape[1] * 4 + 8,
-                        W * round_ops_per_word(2, 1, 0.01, True), int_rate)
-    print(f"[4] K4 {k4_ms * 1e3:.2f} us/launch ({k4_total:.2f} ms for "
-          f"{rounds}); plain {plain_hbm_ms:.3f} ms/round; bound "
-          f"{k4_bound[0] * 1e3:.3f} us by {k4_bound[1]}; host draws "
-          f"{draw_ms:.1f} ms a call; card idle {idle:.3f} of a call's "
-          f"span")
 
-    # ---- where K4's time goes: the same launches without churn (no
-    # Bernoulli mask), after the counts above were read
-    w = demers.rumor_pack(demers.rumor_init(N_HBM, 0, device=dev))
-    k4_calm, _ = event_ms(lambda: hbm.rumor_run_hbm_cuda(
-        w, table, N_HBM, 1, 0.0, True))
-    print(f"[4] without churn: K4 {k4_calm / rounds * 1e3:.2f} us/launch "
-          f"(with churn {k4_ms * 1e3:.2f})")
+    def k4(churn, w=w, table=table, n=n):
+        return lambda: hbm.rumor_run_hbm_cuda(w, table, n, 1, churn, True)
+
+    k4_all = k3_times(k4(0.01))
+    k4_ms = statistics.median(k4_all)
+    k4_plain_ms, want = event_ms(lambda: hbm.rumor_run_hbm_plain(
+        w, table, n, 1, 0.01, True))
+    got = k4(0.01)()
+    torch.cuda.synchronize()
+    err = max(max_abs_err(want.infected, got.infected),
+              max_abs_err(want.hot, got.hot))
+    k4_err = max(k4_err, err)
+    assert err == 0, "K4 disagrees with its plain version on the main path"
+    W = n // 32
+    k4_bound = bound_ms(4 * W * 4 + table.numel() * 4,
+                        rounds * W * round_ops_per_word(2, 1, 0.01, True),
+                        int_rate)
+    call_ms = statistics.median(spans)
+    us = 1e3 / rounds
+    print(f"[4] K4 one launch of {rounds} rounds: {k4_ms:.3f} ms "
+          f"({k4_ms * us:.4f} us/round; launches "
+          f"{[round(x, 3) for x in k4_all]} ms); {k4_ms / k4_bound[0]:.2f}x "
+          f"its bound {k4_bound[0]:.4f} ms by {k4_bound[1]}; plain "
+          f"{k4_plain_ms:.1f} ms (max_abs_err {err}); host draws of the "
+          f"table {draw_ms:.1f} ms; card idle {1.0 - k4_ms / call_ms:.3f} "
+          f"of a {call_ms:.1f} ms call span ({card})")
+    calm = statistics.median(k3_times(k4(0.0)))
+    barrier = statistics.median(k3_times(
+        lambda: hbm.barrier_probe_cuda(rounds, n)))
+    print(f"[4] K4 a round: {k4_ms * us:.4f} us = the barrier alone "
+          f"{barrier * us:.4f} + loads and bit operations "
+          f"{(calm - barrier) * us:.4f} + churn arithmetic left exposed "
+          f"{(k4_ms - calm) * us:.4f} ({card})")
+
+    # one N=2^26 call of 1000 rounds through the entry point
+    n, rounds = N_HBM_BIG, 1000
+    w = demers.rumor_pack(demers.rumor_init(n, 104729 % n, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = hbm.rumor_run_hbm(w, rounds, n, 2, 1, 0.01, 1024, True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    table = hbm.hbm_table(int(w.rnd), rounds, n, 2)
+    big_ms = statistics.median(k3_times(k4(0.01, w, table, n)))
+    want = hbm.rumor_run_hbm_plain(w, table, n, 1, 0.01, True)
+    err = max(max_abs_err(want.infected, out.infected),
+              max_abs_err(want.hot, out.hot))
+    k4_err = max(k4_err, err)
+    W = n // 32
+    big_bound = bound_ms(4 * W * 4 + table.numel() * 4,
+                         rounds * W * round_ops_per_word(2, 1, 0.01, True),
+                         int_rate)
+    fk, fp = frac(out.infected, n), frac(want.infected, n)
+    print(f"[4] big-N rumor_run_hbm N=2^26, {rounds} rounds, churn 0.01, "
+          f"all_alive: {rounds / dt:.1f} rounds/s (host clock, one call); "
+          f"K4 {big_ms:.3f} ms a launch ({big_ms * 1e3 / rounds:.4f} "
+          f"us/round), {big_ms / big_bound[0]:.2f}x its bound "
+          f"{big_bound[0]:.4f} ms by {big_bound[1]}; infected {fk:.4f} "
+          f"(plain {fp:.4f}, max_abs_err {err}) ({card})")
+    assert err == 0, "K4 disagrees with its plain version at N=2^26"
+    if ENDEMIC[0] < fp < ENDEMIC[1]:
+        assert ENDEMIC[0] < fk < ENDEMIC[1], fk
 
     route = dense_phases(dev, card, int_rate)
     pack, route_sharded = sharded_phases(dev, card, int_rate)
@@ -926,9 +1006,9 @@ def main() -> int:
          "source": "partisan_tpu_torch/csrc/rumor_hbm.cu",
          "replaces": "partisan_tpu/ops/rumor_kernel_hbm.py:448",
          "launches": k4_launches, "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": plain_hbm_ms,
+         "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
-         "library_ms": None, "n": N_HBM, "rounds": 1},
+         "library_ms": None, "n": N_HBM, "rounds": 3000},
         route,
         pack,
     ]

@@ -43,14 +43,15 @@
 // store overtakes a read.  Only the mask work, which reads no state, may
 // sit between arrive and wait.
 //
-// What bounds it: the bound at 2^20 is operations (the churn mask's chain,
-// 8.58 ms a 20,000-round launch, 0.43 us a round), not bytes (5 x 128 KB
-// a round).  What sets the pace is the chain of latencies a round: the
-// barrier's round trip and one L2 load latency for the rolled reads, all
-// 2 * (fanout + 1) of them and their alive words issued together (fanout
-// 1-4; the runtime loop for a larger fanout issues them roll by roll).  The
-// kernel this replaces paid two cooperative-groups grid.sync() a round,
-// with a serial atomicExch and reseed by one thread between them.
+// What bounds it: the bound at 2^20 is operations (the churn mask's chain
+// at the levels a word needs, 4.16 ms a 20,000-round launch, 0.21 us a
+// round), not bytes (5 x 128 KB a round).  What sets the pace is the chain
+// of latencies a round: the barrier's round trip and one L2 load latency
+// for the rolled reads, all 2 * (fanout + 1) of them and their alive words
+// issued together (fanout 1-4; the runtime loop for a larger fanout issues
+// them roll by roll).  The kernel this replaces paid two cooperative-groups
+// grid.sync() a round, with a serial atomicExch and reseed by one thread
+// between them.  The barrier lives in rumor_common.cuh, shared with K4.
 
 #include <cuda_runtime.h>
 
@@ -60,8 +61,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;             // a block; a thread a word
-constexpr unsigned kHotBlock = 1u << 16;  // counts[i]: high half
+constexpr int kThreads = 256;  // a block; a thread a word
 
 struct FusedParams {
   const int32_t* table;   // [n_rounds, fanout + 3]: shifts, coin salt,
@@ -76,27 +76,6 @@ struct FusedParams {
   int churn_depth;        // 0: no churn
   uint32_t churn_ones;
 };
-
-__device__ __forceinline__ void arrive(unsigned* word, unsigned v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
-               :: "l"(word), "r"(v) : "memory");
-}
-
-// Spin until all `blocks` blocks have arrived; returns the word.
-__device__ __forceinline__ unsigned wait_all(const unsigned* word,
-                                             unsigned blocks) {
-  unsigned v;
-  do {
-    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                 : "=r"(v) : "l"(word) : "memory");
-  } while ((v & (kHotBlock - 1u)) < blocks);
-  return v;
-}
-
-// Keeps a value's computation before this point (before the wait).
-__device__ __forceinline__ void pin(uint32_t& x) {
-  asm volatile("" : "+r"(x));
-}
 
 // One round's row of the table.  F > 0: the fanout, shifts in registers;
 // F == 0: any fanout, shifts after the first read from the table.
@@ -243,13 +222,15 @@ __global__ void __launch_bounds__(kThreads) rumor_fused_kernel(FusedParams p) {
                         __ldg(p.alive + w), c, r);
     }
     const int any = __syncthreads_or(seen != 0u);
-    if (threadIdx.x == 0) arrive(p.counts + i, 1u + (any ? kHotBlock : 0u));
+    if (threadIdx.x == 0)
+      rumor_arrive(p.counts + i, 1u + (any ? kRumorHotBlock : 0u));
     if (!more) break;
     // between arrive and wait: round i + 1's masks, which read no state
     masks(p, w0, next, coin, reborn);
-    pin(coin);
-    pin(reborn);
-    if (threadIdx.x == 0) s_count = wait_all(p.counts + i, gridDim.x);
+    rumor_pin(coin);
+    rumor_pin(reborn);
+    if (threadIdx.x == 0)
+      s_count = rumor_wait_all(p.counts + i, gridDim.x);
     __syncthreads();
     rs = (s_count >> 16) == 0u ? Reseed{row.pz >> 5, 1u << (row.pz & 31)}
                                : Reseed{-1, 0u};
@@ -257,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) rumor_fused_kernel(FusedParams p) {
   }
   // the last round's restart goes straight into the output
   if (blockIdx.x == 0 && threadIdx.x == 0 &&
-      (wait_all(p.counts + p.n_rounds - 1, gridDim.x) >> 16) == 0u) {
+      (rumor_wait_all(p.counts + p.n_rounds - 1, gridDim.x) >> 16) == 0u) {
     const size_t out = static_cast<size_t>(p.n_rounds & 1) * p.nw;
     const int k = row.pz >> 5;
     const uint32_t bit = 1u << (row.pz & 31);
@@ -270,14 +251,7 @@ __global__ void __launch_bounds__(kThreads) rumor_fused_kernel(FusedParams p) {
 // measurement probe (the share of a K3 round that is the barrier).
 __global__ void __launch_bounds__(kThreads) barrier_probe_kernel(
     unsigned* counts, int n_rounds) {
-  for (int i = 0; i < n_rounds; ++i) {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      arrive(counts + i, 1u);
-      wait_all(counts + i, gridDim.x);
-    }
-    __syncthreads();
-  }
+  rumor_barrier_rounds(counts, n_rounds);
 }
 
 void* kernel_for(int fanout) {

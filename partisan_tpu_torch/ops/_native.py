@@ -43,6 +43,8 @@ SIGNATURES = {
     # alive, inf, hot, counts, stream
     "rumor_hbm_run": (_P, _I, _I, _I, _I, _I, _U, _I, _U, _P, _P, _P, _P,
                       _P),
+    # n_rounds, n, counts, stream
+    "rumor_hbm_barrier_run": (_I, _I, _P, _P),
     # targets, salt, m, n, c, bits, scratch, out, stream
     "route_select_run": (_P, _U, _I, _I, _I, _I, _P, _P, _P),
     # shard, n_sh, m, d, b, counts, bstart, tgt, order, dropped, stream

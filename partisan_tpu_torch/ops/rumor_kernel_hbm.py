@@ -1,5 +1,5 @@
-"""K4: the rumor epidemic with state in device memory, one launch per
-round — the counterpart of ``partisan_tpu/ops/rumor_kernel_hbm.py::
+"""K4: the rumor epidemic with state in device memory, one launch a
+call — the counterpart of ``partisan_tpu/ops/rumor_kernel_hbm.py::
 rumor_run_hbm``, the big-N path (2^24 and 2^26 nodes).
 
 State is viewed as [R, 128] words, R = n / 4096.  Per (round, fanout) the
@@ -19,7 +19,10 @@ any churn; against the reference the run is exact at churn 0 and
 distributional above it.
 
 ``rumor_run_hbm`` launches ``csrc/rumor_hbm.cu`` for a CUDA tensor and
-runs the plain version (``rumor_run_hbm_plain``) for a CPU one.
+runs the plain version (``rumor_run_hbm_plain``) for a CPU one.  The
+kernel is a persistent cooperative grid that runs every round of the call
+with one split-phase grid barrier a round; there is no fallback from one
+to the other.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from . import _native
 from .bitset import WORD, biased_words, i32, lshr, mix32, wrap_i32
 from .rumor_kernel import CELL, LANES, check_packed, check_table, mask_args
 
-LAUNCHES = 0   # kernel launches (one per round); chip_smoke.py reads it
+LAUNCHES = 0   # kernel launches (one a call); chip_smoke.py reads it
 KEY_SEED = 0xB10C
 
 
@@ -69,10 +72,13 @@ def _row_roll(x: torch.Tensor, s: int) -> torch.Tensor:
 
 def rumor_run_hbm_plain(packed: RumorWorldPacked, table: torch.Tensor,
                         n: int, stop_k: int = 1, churn: float = 0.0,
-                        all_alive: bool = False) -> RumorWorldPacked:
+                        all_alive: bool = False,
+                        died: list[int] | None = None) -> RumorWorldPacked:
     """The plain PyTorch version: the same semantics on [R, 128] words
     with ``torch.roll`` (the counterpart of the reference test's
-    ``numpy_reference``)."""
+    ``numpy_reference``).  ``died``, when given, gains the index of each
+    round that ended with no hot & alive node, so that the next round
+    restarts the rumor (one host sync a round)."""
     R = n // CELL
     fanout = (table.shape[1] - 3) // 2
     dev = packed.infected.device
@@ -109,6 +115,8 @@ def rumor_run_hbm_plain(packed: RumorWorldPacked, table: torch.Tensor,
             new_inf[wi // LANES, wi % LANES] |= bit
             new_hot[wi // LANES, wi % LANES] |= bit
         prev_alive_hot = ((new_hot & al) != 0).sum()
+        if died is not None and int(prev_alive_hot) == 0:
+            died.append(i)
         inf, hot = new_inf, new_hot
     return RumorWorldPacked(inf.reshape(-1), hot.reshape(-1), packed.alive,
                             packed.rnd + table.shape[0])
@@ -117,8 +125,9 @@ def rumor_run_hbm_plain(packed: RumorWorldPacked, table: torch.Tensor,
 def rumor_run_hbm_cuda(packed: RumorWorldPacked, table: torch.Tensor,
                        n: int, stop_k: int = 1, churn: float = 0.0,
                        all_alive: bool = False) -> RumorWorldPacked:
-    """``csrc/rumor_hbm.cu``, one launch per table row, on the current
-    stream."""
+    """One launch of ``csrc/rumor_hbm.cu`` over the whole table, on the
+    current stream: 1024-thread blocks of 8 rows, as many as the card
+    holds at once (132 at n = 2^24)."""
     global LAUNCHES
     fanout = check_table(table, 2)
     n_rounds = table.shape[0]
@@ -139,10 +148,21 @@ def rumor_run_hbm_cuda(packed: RumorWorldPacked, table: torch.Tensor,
         inf.data_ptr(), hot.data_ptr(), counts.data_ptr(),
         _native.stream_handle(inf))
     _native.check(err, "rumor_hbm_run")
-    LAUNCHES += n_rounds
+    LAUNCHES += 1
     slot = n_rounds % 2
     return RumorWorldPacked(inf[slot], hot[slot], packed.alive,
                             packed.rnd + n_rounds)
+
+
+def barrier_probe_cuda(n_rounds: int, n: int, device="cuda") -> None:
+    """K4's grid barrier alone: ``n_rounds`` arrive-and-wait rounds on the
+    grid ``rumor_run_hbm_cuda`` takes for n nodes.  A timing probe for the
+    share of a round that is the barrier; it computes nothing and counts
+    no launch."""
+    counts = torch.zeros(n_rounds, dtype=torch.int32, device=device)
+    err = _native.lib().rumor_hbm_barrier_run(n_rounds, n, counts.data_ptr(),
+                                              _native.stream_handle(counts))
+    _native.check(err, "rumor_hbm_barrier_run")
 
 
 def rumor_run_hbm(packed: RumorWorldPacked, n_rounds: int, n: int,

@@ -177,9 +177,67 @@ def test_hbm_kernel_matches_plain(cuda, all_alive, stop_k, churn):
         got = rumor_kernel_hbm.rumor_run_hbm_cuda(w, table, n, stop_k, churn,
                                                   all_alive)
         torch.cuda.synchronize()
-        assert rumor_kernel_hbm.LAUNCHES == before + 6
+        assert rumor_kernel_hbm.LAUNCHES == before + 1
         assert torch.equal(want.infected, got.infected)
         assert torch.equal(want.hot, got.hot)
+
+
+HBM_CASES = [  # n, rounds, fanout, stop_k, churn, all_alive, hot_frac
+    (8 * CELL, 1, 2, 3, 0.01, False, 0.5),
+    (8 * CELL, 2, 2, 3, 0.01, False, 0.0),
+    (8 * CELL, 2, 2, 1, 0.01, True, 0.0),
+    (CELL, 61, 2, 3, 0.01, False, 0.5),
+    (13 * CELL, 61, 1, 1, 0.01, False, 0.5),
+    (13 * CELL, 61, 3, 3, 0.3, True, 0.5),
+    (8 * CELL, 200, 1, 1, DYING, False, 0.5),
+    (8 * CELL, 200, 1, 3, DYING, True, 0.5),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,rounds,fanout,stop_k,churn,all_alive,hot_frac",
+                         HBM_CASES)
+def test_hbm_kernel_cases(cuda, n, rounds, fanout, stop_k, churn, all_alive,
+                          hot_frac):
+    """1 and 2 rounds (a restart on round 1 from a world with no hot
+    node), one row (fewer rows than a block's 8), 13 rows (a ragged
+    grid), fanout 1 and 3, and a dying world (churn 0.6 at fanout 1) that
+    restarts many times: one launch a call, bit-equal to the plain
+    version."""
+    w = packed_world(n, rounds + fanout, hot_frac, device=cuda)
+    table = rumor_kernel_hbm.hbm_table(int(w.rnd), rounds, n, fanout)
+    died = []
+    want = rumor_kernel_hbm.rumor_run_hbm_plain(w, table, n, stop_k, churn,
+                                                all_alive, died)
+    before = rumor_kernel_hbm.LAUNCHES
+    got = rumor_kernel_hbm.rumor_run_hbm_cuda(w, table, n, stop_k, churn,
+                                              all_alive)
+    torch.cuda.synchronize()
+    assert rumor_kernel_hbm.LAUNCHES == before + 1
+    assert torch.equal(want.infected, got.infected)
+    assert torch.equal(want.hot, got.hot)
+    if churn == DYING:
+        assert len(died) >= rounds // 10, died
+    if hot_frac == 0.0:
+        assert died[0] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,rounds", [(1 << 24, 40), (1 << 26, 6)])
+def test_hbm_entry_at_the_big_n_sizes(cuda, n, rounds):
+    """The entry point at 2^24 (two words a thread) and 2^26, where the
+    words (2^21) outnumber the threads the card holds at once eight to
+    one: one launch a call, bit-equal to the plain version."""
+    w = packed_world(n, 4, 0.5, device=cuda)
+    before = rumor_kernel_hbm.LAUNCHES
+    got = rumor_kernel_hbm.rumor_run_hbm(w, rounds, n, 2, 1, 0.01, 1024,
+                                         True)
+    torch.cuda.synchronize()
+    assert rumor_kernel_hbm.LAUNCHES == before + 1
+    table = rumor_kernel_hbm.hbm_table(int(w.rnd), rounds, n, 2)
+    want = rumor_kernel_hbm.rumor_run_hbm_plain(w, table, n, 1, 0.01, True)
+    assert torch.equal(want.infected, got.infected)
+    assert torch.equal(want.hot, got.hot)
 
 
 @pytest.mark.gpu
